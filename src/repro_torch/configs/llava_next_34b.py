@@ -1,0 +1,19 @@
+"""llava-next-34b [vlm] — 60L d_model=7168 56H (GQA kv=8) d_ff=20480
+vocab=64000 backbone; anyres vision tiling STUB (input_specs provides
+precomputed patch embeddings).  [hf:llava-hf/llava-v1.6; unverified]"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llava-next-34b",
+    family="vlm",
+    n_layers=60,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=20480,
+    vocab_size=64000,
+    n_patches=2880,  # anyres: base 576 + 4 tiles x 576
+    rope_theta=5e6,
+)

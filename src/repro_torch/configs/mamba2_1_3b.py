@@ -1,0 +1,20 @@
+"""mamba2-1.3b [ssm] — 48L d_model=2048, attention-free SSD,
+ssm_state=128, vocab=50280.  [arXiv:2405.21060; unverified]"""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-1.3b",
+    family="ssm",
+    n_layers=48,
+    d_model=2048,
+    n_heads=32,      # unused by SSD; kept for API uniformity
+    n_kv_heads=32,
+    d_ff=0,
+    vocab_size=50280,
+    ssm_state=128,
+    ssm_headdim=64,
+    ssm_expand=2,
+    ssm_chunk=256,
+    tie_embeddings=True,
+)

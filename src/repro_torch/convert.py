@@ -2,10 +2,13 @@
 
 The JAX package keeps layer-variant weights as ``w [C/g^2, K/g^2]``
 (the fused pointwise variant) and ``w_full [R, S, C/g^2, K/g^2]`` (the
-R x S variant behind im2col).  The port keeps the same layouts at its
-public functions, so a test hands both packages the very same numbers:
-it draws them with numpy, gives the arrays to the JAX function, and
-passes the same tree through :func:`params_from_numpy` for the port.
+R x S variant behind im2col).  Its LM parameter trees keep every linear
+as ``{"w": [d_in, d_out]}`` too, but stack the blocks: each leaf under
+``blocks`` has a leading ``n_layers`` axis (``jax.vmap`` of the block
+init).  The port keeps the same layouts at its public functions, so a
+test hands both packages the very same numbers: it draws them with
+numpy, gives the arrays to the JAX function, and passes the same tree
+through :func:`params_from_numpy` for the port.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from repro_torch.device import resolve_device
 
 #: leaf name -> rank of its JAX layout (checked on conversion)
 LAYOUT_RANKS = {"w": 2, "w_full": 4}
+#: subtrees whose leaves carry one leading stacked-layer axis
+STACKED = ("blocks",)
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -40,29 +45,37 @@ def params_from_numpy(
     """Convert a dict/list/tuple tree of numpy arrays into tensors on
     ``device`` (``cuda`` when None), keeping every array's layout.
 
-    Leaves named in :data:`LAYOUT_RANKS` must have that rank; a
-    mismatch raises ``ValueError`` naming the leaf.  ``expect`` maps a
-    leaf name to the exact shape it must have (e.g. ``{"w": (Cv, Kv)}``)."""
+    Leaves named in :data:`LAYOUT_RANKS` must have that rank, plus one
+    for each enclosing :data:`STACKED` subtree (``blocks/attn/wq/w`` is
+    ``[n_layers, d_in, d_out]``); a mismatch raises ``ValueError``
+    naming the leaf's path.  ``expect`` maps a leaf's path (``"a/b/w"``)
+    or its bare name (``"w"``) to the exact shape it must have; the path
+    wins where both are given."""
     dev = resolve_device(device)
+    expect = expect or {}
 
-    def conv(node, name=None):
+    def conv(node, path, name=None):
+        # name: the leaf's own key; a list's elements go by the list's key
         if isinstance(node, dict):
-            return {k: conv(v, k) for k, v in node.items()}
+            return {k: conv(v, path + (str(k),), k) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return type(node)(conv(v, name) for v in node)
+            return type(node)(conv(v, path + (str(i),), name) for i, v in enumerate(node))
+        where = "/".join(path)
         if not isinstance(node, (np.ndarray, np.generic)):
-            raise TypeError(f"leaf {name!r} is {type(node).__name__}, not a numpy array")
+            raise TypeError(f"leaf {where!r} is {type(node).__name__}, not a numpy array")
         want = LAYOUT_RANKS.get(name)
-        if want is not None and np.ndim(node) != want:
-            raise ValueError(
-                f"leaf {name!r} has shape {np.shape(node)}; its JAX layout "
-                f"has rank {want}"
-            )
-        shape = (expect or {}).get(name)
+        if want is not None:
+            want += sum(part in STACKED for part in path[:-1])
+            if np.ndim(node) != want:
+                raise ValueError(
+                    f"leaf {where!r} has shape {np.shape(node)}; its JAX layout "
+                    f"has rank {want}"
+                )
+        shape = expect.get(where, expect.get(name))
         if shape is not None and tuple(np.shape(node)) != tuple(shape):
             raise ValueError(
-                f"leaf {name!r} has shape {np.shape(node)}, expected {tuple(shape)}"
+                f"leaf {where!r} has shape {np.shape(node)}, expected {tuple(shape)}"
             )
         return _tensor(node, dev)
 
-    return conv(tree)
+    return conv(tree, ())

@@ -7,8 +7,7 @@ views ``x.reshape(-1, C/g^2) @ w`` (the rearrangements cancel; see the
 note at the top of the CUDA source).
 
 The source is compiled with ``nvcc`` at first use into a shared library
-with a plain C interface, cached by the source's hash under
-``csrc/build/`` (listed in ``.gitignore``), and loaded with ctypes.
+with a plain C interface and loaded with ctypes (:mod:`..nvcc`).
 Nothing is built or imported from CUDA when this module is imported.
 
 :func:`s2d_conv_cuda` counts its launches in ``s2d_conv_cuda.launches``
@@ -19,83 +18,27 @@ can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
-from typing import Optional
 
 import torch
 
-CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCE = CSRC / "s2d_conv.cu"
-BUILD_DIR = CSRC / "build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+from repro_torch.kernels.nvcc import CudaLibrary
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib: Optional[ctypes.CDLL] = None
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.s2d_conv_gemm
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError(
-            "nvcc not found: the s2d-conv kernel is built from "
-            f"{SOURCE.name} with the CUDA toolkit"
-        )
-    return nvcc
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel library if this source has not been built yet;
-    returns its path.  ``verbose`` adds ``-Xptxas -v`` and prints the
-    compiler's report (registers, shared memory, spills)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libs2d_conv-{tag}.so"
-    if lib.exists() and not verbose:
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name and rename into place, so concurrent
-    # builders never load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE.name}:\n{proc.stderr}"
-            )
-        if verbose:
-            print(proc.stderr.strip())
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
-
-
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library once per process."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.s2d_conv_gemm
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+LIBRARY = CudaLibrary("s2d_conv.cu", _bind)
+build = LIBRARY.build
+load = LIBRARY.load
 
 
 def s2d_conv_cuda(x: torch.Tensor, w: torch.Tensor, gamma: int) -> torch.Tensor:

@@ -1,0 +1,80 @@
+"""Unified model API of the torch port: family dispatch + the shape table.
+
+Port of the JAX package's ``models/model_api.py`` for serving.
+``build_model(cfg, device)`` returns a :class:`Model` bundle:
+
+  init(generator) -> params                  (weights drawn on the generator's device)
+  init_cache(batch, max_len) -> cache
+  decode_step(params, token, cache, pos) -> (logits, cache)   (cache updated in place)
+
+``SHAPES`` / :class:`ShapeSpec` are the JAX package's shape kinds, as data.
+Only the dense family is ported so far; ``loss``, ``prefill`` and the
+sharding specs (``param_specs``, ``cache_specs``, ``input_specs``,
+``batch_specs``) come with later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Tuple, Union
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+#: families not ported yet -> the ROADMAP item that ports them
+NOT_PORTED = {
+    "ssm": "ROADMAP A7 (Mamba2 / SSD, with the ssd_scan kernel B3)",
+    "moe": "ROADMAP A8 (remaining model families)",
+    "hybrid": "ROADMAP A8 (remaining model families)",
+    "encdec": "ROADMAP A8 (remaining model families)",
+    "vlm": "ROADMAP A8 (remaining model families)",
+}
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+    init: Callable[[torch.Generator], Params]
+    init_cache: Callable[[int, int], Params]
+    decode_step: Callable[..., Tuple[torch.Tensor, Params]]
+
+
+def build_model(cfg: ModelConfig, device: Union[str, torch.device, None] = None) -> Model:
+    """The model bundle on ``device`` (the CUDA card when None)."""
+    fam = cfg.family
+    if fam in NOT_PORTED:
+        raise NotImplementedError(
+            f"family '{fam}' ({cfg.name}) is not ported to torch yet: {NOT_PORTED[fam]}"
+        )
+    if fam != "dense":
+        raise ValueError(f"unknown family '{fam}'")
+    dev = resolve_device(device)
+    return Model(
+        cfg,
+        dev,
+        init=lambda gen: transformer.init_dense_model(gen, cfg),
+        init_cache=lambda B, L: transformer.dense_init_cache(cfg, B, L, dev),
+        decode_step=lambda p, t, c, pos: transformer.dense_decode_step(cfg, p, t, c, pos),
+    )

@@ -1,0 +1,205 @@
+"""Dense decoder-only transformer (llama / qwen / gemma / mistral families): decode path.
+
+Port of the JAX package's ``models/transformer.py`` for one serving step.
+Layers stay *stacked* along a leading ``n_layers`` axis, as in JAX, so a
+JAX parameter tree converts leaf for leaf (``convert.params_from_numpy``);
+where JAX scans the stack, the port loops over its layers.
+
+Left for later slices: ``attn_apply_train``, ``dense_block_apply``,
+``forward_hidden_dense`` and ``dense_loss`` (prefill and training), and
+the ``*_specs`` sharding trees (nothing to shard on one card).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.decode_attn.ops import gqa_decode_attention
+from repro_torch.models.common import (
+    apply_rope,
+    dtype_of,
+    embed,
+    glu_activation,
+    init_embedding,
+    init_linear,
+    init_rmsnorm,
+    linear,
+    rmsnorm,
+)
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+# ----------------------------------------------------------------- blocks ---
+
+
+def init_attn(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Params:
+    dh = cfg.resolved_head_dim
+    return {
+        "wq": init_linear(gen, cfg.d_model, cfg.n_heads * dh, dtype),
+        "wk": init_linear(gen, cfg.d_model, cfg.n_kv_heads * dh, dtype),
+        "wv": init_linear(gen, cfg.d_model, cfg.n_kv_heads * dh, dtype),
+        "wo": init_linear(gen, cfg.n_heads * dh, cfg.d_model, dtype,
+                          scale=0.02 / max(1, 2 * cfg.n_layers) ** 0.5),
+    }
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+             d_ff: Optional[int] = None) -> Params:
+    d_ff = d_ff or cfg.d_ff
+    return {
+        "w_gate": init_linear(gen, cfg.d_model, d_ff, dtype),
+        "w_up": init_linear(gen, cfg.d_model, d_ff, dtype),
+        "w_down": init_linear(gen, d_ff, cfg.d_model, dtype,
+                              scale=0.02 / max(1, 2 * cfg.n_layers) ** 0.5),
+    }
+
+
+def init_dense_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> Params:
+    return {
+        "attn_norm": init_rmsnorm(cfg.d_model, gen.device),
+        "attn": init_attn(gen, cfg, dtype),
+        "mlp_norm": init_rmsnorm(cfg.d_model, gen.device),
+        "mlp": init_mlp(gen, cfg, dtype),
+    }
+
+
+def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    a = linear(p["w_gate"], x)
+    b = linear(p["w_up"], x)
+    return linear(p["w_down"], glu_activation(cfg.activation, a, b))
+
+
+# -------------------------------------------------------- decode (1 token) --
+
+
+KV_QUANT_SCALE = 32.0  # int8 KV cache: symmetric, fixed scale
+
+
+def _kv_quant(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x.float() * KV_QUANT_SCALE), -127, 127).to(torch.int8)
+
+
+def _kv_dequant(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (x.float() * (1.0 / KV_QUANT_SCALE)).to(dtype)
+
+
+def attn_apply_decode(
+    cfg: ModelConfig,
+    p: Params,
+    x1: torch.Tensor,  # [B, 1, D]
+    cache_k: torch.Tensor,  # [B, Lmax, Hkv, Dh]
+    cache_v: torch.Tensor,
+    pos: int,
+    valid_len: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One token's attention at ``pos``; returns ``(out, cache_k, cache_v)``.
+
+    The new key and value are written into the caches *in place* at
+    ``pos`` (JAX's ``dynamic_update_slice`` returns new caches; the
+    returned caches here are the tensors passed in).  Attention goes
+    through ``kernels.decode_attn.ops.gqa_decode_attention``, where the
+    JAX model calls ``models.common.decode_attention``: the same
+    function (the JAX package wraps its Pallas kernel for exactly this
+    call site but never wired it into the model).  ``valid_len`` is the
+    kernel's ``[B]`` ``pos + 1`` (see the wrapper)."""
+    B = x1.shape[0]
+    dh = cfg.resolved_head_dim
+    q = linear(p["wq"], x1).reshape(B, 1, cfg.n_heads, dh)
+    k = linear(p["wk"], x1).reshape(B, 1, cfg.n_kv_heads, dh)
+    v = linear(p["wv"], x1).reshape(B, 1, cfg.n_kv_heads, dh)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x1.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.kv_cache_quant:
+        # int8 cache: 1 byte per element in the cache, dequantised for attention
+        cache_k[:, pos] = _kv_quant(k[:, 0])
+        cache_v[:, pos] = _kv_quant(v[:, 0])
+        dt = x1.dtype
+        o = gqa_decode_attention(q, _kv_dequant(cache_k, dt), _kv_dequant(cache_v, dt),
+                                 pos, valid_len)
+    else:
+        cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+        o = gqa_decode_attention(q, cache_k, cache_v, pos, valid_len)
+    return linear(p["wo"], o.reshape(B, 1, cfg.n_heads * dh)), cache_k, cache_v
+
+
+def dense_block_decode(cfg, p, x1, cache_k, cache_v, pos, valid_len=None):
+    a, ck, cv = attn_apply_decode(cfg, p["attn"], rmsnorm(p["attn_norm"], x1, cfg.norm_eps),
+                                  cache_k, cache_v, pos, valid_len)
+    x1 = x1 + a
+    x1 = x1 + mlp_apply(cfg, p["mlp"], rmsnorm(p["mlp_norm"], x1, cfg.norm_eps))
+    return x1, ck, cv
+
+
+# ------------------------------------------------------------- full model ---
+
+
+def _stack(trees):
+    """Stack a list of equal-structure param trees along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked param tree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def init_dense_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Weights drawn from ``gen`` on its device, with the JAX package's
+    scales; blocks stacked ``[n_layers, ...]``."""
+    dtype = dtype_of(cfg.dtype)
+    params = {
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype),
+        "blocks": _stack([init_dense_block(gen, cfg, dtype) for _ in range(cfg.n_layers)]),
+        "final_norm": init_rmsnorm(cfg.d_model, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab_size, dtype)
+    return params
+
+
+def _lm_head_w(cfg: ModelConfig, params: Params) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"]["emb"].T
+    return params["lm_head"]["w"]
+
+
+def dense_init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     device: torch.device) -> Params:
+    dh = cfg.resolved_head_dim
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, dh)
+    dt = torch.int8 if cfg.kv_cache_quant else dtype_of(cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def dense_decode_step(
+    cfg: ModelConfig,
+    params: Params,
+    token: torch.Tensor,  # [B] int — current token ids
+    cache: Params,
+    pos: int,
+) -> Tuple[torch.Tensor, Params]:
+    """One serving step: consume ``token`` at ``pos``, return next-token
+    logits (f32) and the cache, updated in place.  ``pos`` is a Python
+    int, so no layer waits on the device for it; the kernel's
+    ``valid_len`` is made once here for all layers."""
+    B = token.shape[0]
+    x1 = embed(params["embed"], token)[:, None, :]  # [B,1,D]
+    valid_len = torch.full((B,), pos + 1, dtype=torch.int32, device=token.device)
+    for i in range(cfg.n_layers):
+        x1, _, _ = dense_block_decode(cfg, _layer(params["blocks"], i), x1,
+                                      cache["k"][i], cache["v"][i], pos, valid_len)
+    h = rmsnorm(params["final_norm"], x1, cfg.norm_eps)
+    logits = (h[:, 0, :] @ _lm_head_w(cfg, params)).float()
+    return logits, cache

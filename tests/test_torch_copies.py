@@ -5,8 +5,15 @@
 so that it never imports the JAX package.  These tests hold the copies
 to the originals: every scenario's plans are equal field for field, and
 the scalar engines' ``SimResult`` fingerprints are equal on a small grid
-that also crosses the budget-policy, admission and fault axes.
+that also crosses the budget-policy, admission and fault axes.  The
+model configs (``models/config.py``, ``configs/``) are verbatim copies
+with only the import paths changed, and every ``CONFIG`` equals the
+reference's field for field.
 """
+
+import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -100,3 +107,50 @@ def test_device_round_is_not_ported_yet():
     auto = P.simulate(plans, tasks, 0.05, sched, seed=0, engine="soa", round_kernel="auto")
     py = P.simulate(plans, tasks, 0.05, sched, seed=0, engine="soa", round_kernel="python")
     assert auto.fingerprint() == py.fingerprint()
+
+
+# ------------------------------------------------------ model configs ---
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+CONFIG_MODULES = sorted(p.name for p in (SRC / "repro" / "configs").glob("*.py"))
+
+
+def _as_port(text):
+    """The reference source with its import paths moved to the port."""
+    return re.sub(r"\brepro\.", "repro_torch.", text)
+
+
+@pytest.mark.parametrize("rel", ["models/config.py"]
+                         + [f"configs/{name}" for name in CONFIG_MODULES])
+def test_config_sources_are_verbatim_copies(rel):
+    """models/config.py, configs/registry.py, configs/__init__.py and the
+    ten config modules: the reference's text with only ``repro.`` ->
+    ``repro_torch.``."""
+    want = _as_port((SRC / "repro" / rel).read_text())
+    assert (SRC / "repro_torch" / rel).read_text() == want
+
+
+def test_every_config_equals_the_reference():
+    from repro.configs import ARCHS as R_ARCHS
+    from repro.configs import get_config as r_get_config
+    from repro.configs.registry import all_cells as r_all_cells
+    from repro.models.model_api import SHAPES as R_SHAPES
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs.registry import all_cells
+    from repro_torch.models.model_api import SHAPES
+
+    assert len(CONFIG_MODULES) == 12 and len(ARCHS) == 10
+    assert ARCHS == R_ARCHS and all_cells() == r_all_cells()
+    assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == {
+        k: dataclasses.asdict(v) for k, v in R_SHAPES.items()}
+    for arch in ARCHS:
+        got, want = get_config(arch), r_get_config(arch)
+        assert type(got).__module__ == "repro_torch.models.config"
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), arch
+        assert (got.resolved_head_dim, got.d_inner, got.ssm_nheads) == (
+            want.resolved_head_dim, want.d_inner, want.ssm_nheads)
+        assert dataclasses.asdict(got.reduced(dtype="float32")) == dataclasses.asdict(
+            want.reduced(dtype="float32")), arch
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama-0b")

@@ -8,6 +8,12 @@ runs on a machine that has only torch:
 
 * the s2d-conv kernel (``csrc/s2d_conv.cu``) against its plain version,
   in f32 and bf16, with the smoke run's tolerances;
+* the decode-attention kernel (``csrc/decode_attn.cu``) against its plain
+  version, in f32 (``atol 1e-5, rtol 1e-4``: another summation order)
+  and bf16 (``2e-2 * max|ref|``: the plain version rounds the softmax
+  weights to bf16), at the ``tests/test_kernels.py`` shapes, the serving
+  path's shape, a ragged cache length, from one to 64 blocks per row's
+  cache, and per-row valid lengths; serving goes through the kernel;
 * ``simulate_batch`` on the card against the host SoA engine.
 """
 
@@ -89,3 +95,102 @@ def test_batch_engine_on_the_card_matches_host_soa(card):
         want = simulate(plans, tasks, 0.05, make_scheduler("terastal"), seed=s,
                         engine="soa")
         assert res.fingerprint() == want.fingerprint()
+
+
+DECODE_SHAPES = [  # (B, L, H, Hkv, Dh, pos): tests/test_kernels.py, serving, ragged
+    (2, 64, 8, 2, 16, 63), (1, 128, 4, 4, 32, 80), (3, 256, 16, 8, 64, 255),
+    (1, 64, 8, 1, 128, 10), (8, 2048, 32, 8, 64, 255), (8, 2048, 32, 8, 64, 2047),
+    (2, 77, 16, 2, 32, 76), (2, 100, 8, 8, 128, 0),
+    (33, 40, 16, 8, 32, 39),  # B * Hkv fills the card: one block per row
+    (1, 1024, 8, 1, 128, 1000),  # 64 blocks share one row's cache
+]
+
+
+def _decode_inputs(card, B, L, H, Hkv, Dh, dtype, seed):
+    rng = np.random.default_rng(seed)
+    draw = [rng.standard_normal(s, dtype=np.float32)
+            for s in ((B, 1, H, Dh), (B, L, Hkv, Dh), (B, L, Hkv, Dh))]
+    return [torch.from_numpy(a).to(card, dtype) for a in draw]
+
+
+def _close(got, ref, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-4)
+    else:
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 2e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("B,L,H,Hkv,Dh,pos", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain_version(card, B, L, H, Hkv, Dh, pos, dtype):
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ops import gqa_decode_attention
+    from repro_torch.kernels.decode_attn.ref import decode_attention
+
+    q, k, v = _decode_inputs(card, B, L, H, Hkv, Dh, dtype, L + Dh)
+    before = decode_attn_cuda.launches
+    got = gqa_decode_attention(q, k, v, pos)
+    assert decode_attn_cuda.launches == before + 1  # a CUDA tensor launches the kernel
+    ref = decode_attention(q, k, v, pos)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == dtype
+    _close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_reads_each_rows_own_valid_length(card, dtype):
+    """Per-row ``valid_len`` (the Pallas kernel's ``[B]`` lengths): each row
+    equals the plain version at its own position, and what lies beyond
+    it is never read."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attention
+
+    B, L, H, Hkv, Dh = 4, 300, 16, 4, 64
+    q, k, v = _decode_inputs(card, B, L, H, Hkv, Dh, dtype, 1)
+    pos = [0, 17, 255, 299]
+    valid = torch.tensor([p + 1 for p in pos], dtype=torch.int32, device=card)
+    got = decode_attn_cuda(q[:, 0], k, v, valid)
+    k2, v2 = k.clone(), v.clone()
+    for b, p in enumerate(pos):
+        k2[b, p + 1:] = float("nan")
+        v2[b, p + 1:] = float("nan")
+    got2 = decode_attn_cuda(q[:, 0], k2, v2, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got2)
+    for b, p in enumerate(pos):
+        _close(got[b:b + 1, None], decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], p), dtype)
+
+
+def test_decode_kernel_wrapper_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+
+    q = torch.zeros((1, 8, 64), device=card)
+    k = torch.zeros((1, 16, 2, 64), device=card)
+    valid = torch.ones((1,), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        decode_attn_cuda(q.half(), k.half(), k.half(), valid)
+    with pytest.raises(ValueError, match="head dims"):
+        decode_attn_cuda(torch.zeros((1, 8, 48), device=card),
+                         torch.zeros((1, 16, 2, 48), device=card),
+                         torch.zeros((1, 16, 2, 48), device=card), valid)
+    with pytest.raises(ValueError, match="groups"):
+        decode_attn_cuda(torch.zeros((1, 32, 64), device=card), k[:, :, :1].contiguous(),
+                         k[:, :, :1].contiguous(), valid)
+    with pytest.raises(ValueError, match="int32"):
+        decode_attn_cuda(q, k, k, valid.long())
+    strided = torch.zeros((1, 2, 16, 64), device=card).transpose(1, 2)  # [1, 16, 2, 64]
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attn_cuda(q, strided, strided, valid)
+
+
+def test_serve_on_the_card_goes_through_the_kernel(card):
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.launch import serve
+
+    model, params = serve.load("llama3.2-1b", reduced=True)
+    assert model.device.type == "cuda"
+    before = decode_attn_cuda.launches
+    seq = serve.decode(model, params, tokens=5, batch=2, ctx=8)
+    assert decode_attn_cuda.launches == before + 5 * model.cfg.n_layers
+    assert seq.shape == (2, 5) and seq.device.type == "cuda"

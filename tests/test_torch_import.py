@@ -151,3 +151,55 @@ def test_params_from_numpy_checks_layouts():
     with pytest.raises(ValueError, match=r"expected \(4, 8\)"):
         params_from_numpy({"w": np.ones((8, 4), np.float32)}, device="cpu",
                           expect={"w": (4, 8)})
+
+
+def test_params_from_numpy_takes_a_stacked_lm_tree():
+    """A JAX LM tree stacks its blocks: every leaf under ``blocks`` has a
+    leading n_layers axis, so ``blocks/.../w`` is rank 3; outside
+    ``blocks`` the variant-layout ranks hold as before."""
+    import numpy as np
+
+    from repro_torch.convert import params_from_numpy
+
+    nl, d, v = 3, 8, 16
+    tree = {
+        "embed": {"emb": np.ones((v, d), np.float32)},
+        "blocks": {
+            "attn_norm": {"scale": np.ones((nl, d), np.float32)},
+            "attn": {"wq": {"w": np.ones((nl, d, d), np.float32)}},
+            "mlp": {"w_down": {"w": np.ones((nl, 2 * d, d), np.float32)}},
+        },
+        "final_norm": {"scale": np.ones((d,), np.float32)},
+        "lm_head": {"w": np.ones((d, v), np.float32)},
+    }
+    p = params_from_numpy(tree, device="cpu",
+                          expect={"blocks/attn/wq/w": (nl, d, d), "lm_head/w": (d, v)})
+    assert p["blocks"]["attn"]["wq"]["w"].shape == (nl, d, d)
+    assert p["lm_head"]["w"].shape == (d, v)
+    with pytest.raises(ValueError, match="'blocks/attn/wq/w'.*rank 3"):
+        params_from_numpy({"blocks": {"attn": {"wq": {"w": np.ones((d, d), np.float32)}}}},
+                          device="cpu")
+    with pytest.raises(ValueError, match="'lm_head/w'.*rank 2"):
+        params_from_numpy({"lm_head": {"w": np.ones((nl, d, v), np.float32)}}, device="cpu")
+    with pytest.raises(ValueError, match=r"'blocks/attn/wq/w'.*expected \(3, 8, 4\)"):
+        params_from_numpy(tree, device="cpu", expect={"blocks/attn/wq/w": (nl, d, 4)})
+    # a list's elements are checked under the list's own name
+    with pytest.raises(ValueError, match="'w/1'.*rank 2"):
+        params_from_numpy({"w": [np.ones((d, d), np.float32), np.ones(d, np.float32)]},
+                          device="cpu")
+    # a path wins over a bare name
+    params_from_numpy(tree, device="cpu",
+                      expect={"w": (0,), "blocks/attn/wq/w": (nl, d, d),
+                              "blocks/mlp/w_down/w": (nl, 2 * d, d), "lm_head/w": (d, v)})
+
+
+def test_params_from_numpy_keeps_bf16_bits():
+    import numpy as np
+
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    from repro_torch.convert import params_from_numpy
+
+    a = (np.random.default_rng(0).standard_normal((2, 4, 8)) * 3).astype(ml_dtypes.bfloat16)
+    t = params_from_numpy({"blocks": {"w": a}}, device="cpu")["blocks"]["w"]
+    assert t.dtype == torch.bfloat16
+    assert np.array_equal(t.view(torch.int16).numpy().view(np.uint16), a.view(np.uint16))
