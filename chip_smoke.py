@@ -10,9 +10,10 @@ repository beside it, it exits non-zero before printing any result.
 Phases, each on lines of its own; any failure exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit, and the torch device;
-2. build: the s2d-conv and decode-attention kernels compiled from
-   ``csrc/s2d_conv.cu`` and ``csrc/decode_attn.cu``, one ``nvcc`` each,
-   started together (seconds of each);
+2. build: the s2d-conv, decode-attention and SSD-scan kernels compiled
+   from ``csrc/s2d_conv.cu``, ``csrc/decode_attn.cu`` and
+   ``csrc/ssd_scan.cu``, one ``nvcc`` each, started together (seconds of
+   each);
 3. kernel: each kernel against its plain version on the card.
    s2d-conv (``ref.s2d_conv_ref``): at the ``tests/test_kernels.py``
    shapes and at every pointwise variant layer the ``multicam_heavy`` @
@@ -20,19 +21,31 @@ Phases, each on lines of its own; any failure exits non-zero:
    tolerances: f32 max|d| <= 1e-4 max|ref| (another accumulation order),
    bf16 <= 2e-2 max|ref| (bf16 output rounding).  Decode attention
    (``ref.decode_attention``): at the ``tests/test_kernels.py`` shapes
-   and at the serving shape (B=8, L=2048, H=32, Hkv=8, Dh=64) with 256
-   and 2048 valid positions, in f32 and bf16; tolerances: f32
+   and at the serving shapes of llama3.2-1b (B=8, L=2048, H=32, Hkv=8,
+   Dh=64) and gemma-7b (B=8, L=2048, H=16, Hkv=16, Dh=256) with 256 and
+   2048 valid positions, in f32 and bf16; tolerances: f32
    |d| <= 1e-5 + 1e-4 |ref| (another summation order), bf16 max|d| <=
    2e-2 max|ref| (the plain version rounds the softmax weights to bf16).
+   SSD scan (``ref.ssd_chunked``): at the ``tests/test_kernels.py`` shapes
+   in f32 and bf16 (x, B, C in the dtype; log_a, dt f32, as the model
+   feeds them), and at the prefill path's shape (Bt=8, L=4096, H=64,
+   P=64, N=128, Q=256) in the model's dtypes and in all-f32; tolerances:
+   f32 max|d| < 1e-5 max|ref| at the test shapes (``tests/test_kernels.py``'s),
+   1e-4 at the prefill shape (the cumsum of 256 log-decays, taken in
+   another order, moves each exp(cum_i - cum_j) by up to ~1e-5
+   relative), bf16 output 2e-2 max|ref| (bf16 rounding of y).
    Device times (CUDA-graph replay) of the kernel, the plain version and
    one library call (``torch.matmul`` on the reshaped views;
    ``scaled_dot_product_attention(..., enable_gqa=True)`` on transposed
-   copies of the valid positions: yardsticks the port never calls), the
-   bound max(bytes / 3.35 TB/s, operations / peak), and the kernel
-   wrapper's cost per call when launched back to back from Python.  At
-   the serving shapes the decode kernel and SDPA are also timed cold
-   (calls taking turns over copies of the cache twice the 50 MB L2), and
-   the kernels line takes those;
+   copies of the valid positions: yardsticks the port never calls; no
+   single PyTorch call computes the SSD scan), the bound max(bytes /
+   3.35 TB/s, operations / peak; for the SSD scan the products it needs:
+   the causal half, and C Bᵀ once per batch row and chunk, not per
+   head), and the kernel wrapper's cost per call
+   when launched back to back from Python.  At the serving shapes the
+   decode kernel and SDPA are also timed cold (calls taking turns over
+   copies of the cache twice the 50 MB L2), and the kernels line takes
+   those;
 4. main paths, each with its launch count set to 0 just before and read
    just after:
    (i) ``simulate_batch`` on the card for (a) ``multicam_heavy`` @
@@ -59,12 +72,43 @@ Phases, each on lines of its own; any failure exits non-zero:
    decode loop runs once more under ``torch.profiler``: the device's busy
    share of the first run's wall, device ops per step, and the decode
    kernel's share of device time;
+   (iii) ssm prefill: after the llama weights are freed, ``serve.load`` of
+   ``mamba2-1.3b`` at its published widths in bf16 (48 layers, d_model
+   2048, d_inner 4096, 64 heads of 64, N=128, chunk 256, vocab 50280,
+   tied embeddings) and ``model.prefill(params, {"tokens": ...})`` on B=8
+   prompts of L=4096 tokens drawn from a numpy seed (``prefill_32k``,
+   B=32 L=32768, cut to B=8 L=4096).  The SSD kernel must run exactly 48
+   times.  The same prefill is replayed with ``ssd_scan`` swapped for the
+   plain ``ssd_chunked``, and once more with a planted fault (the kernel
+   with the state dropped at every chunk boundary, so no inter-chunk
+   C S term); the last-position logits of each are read against the
+   plain replay.  In bf16 that is a reading, not a check: the two sound
+   runs differ by some 4% of the logits (their f32 scans are summed in
+   another order, which flips the bf16 rounding of a few outputs per
+   layer, and the bf16 residual stream carries each flip through 48
+   random layers), and the planted fault moves them by about as much.
+   The check is in f32, on the same weights and two of the prompts: the
+   kernel within 1e-4 of max|ref| and rms|ref| of the plain replay (f32
+   summation order only), the planted fault outside that limit.  Then a
+   timed prefill (ms, prompt tokens/s, peak memory) and one under
+   ``torch.profiler`` (the device's busy share, the kernel's share of
+   device time);
+   (iv) ssm decode: ``serve.decode`` of the same model, B=8, 256 greedy
+   tokens: no SSD or decode-attention launch (the recurrent step uses
+   no kernel); ms/token, tokens/s, and under ``torch.profiler`` the busy
+   share and device ops per step.  Then the JAX package's cross-path
+   check (``tests/test_model_consistency.py::test_decode_matches_train_forward``)
+   at full width and, as there, in f32: one 512-token prompt (two
+   chunks) through ``decode_step`` token by token against
+   ``model.prefill`` on the same tokens; the last logits within that
+   test's |d| <= 2e-4 + 2e-3 |ref|;
 5. the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
 All rows also go to ``chiprun_out/chip_smoke.json``.
 """
 
+import dataclasses
 import itertools
 import json
 import subprocess
@@ -87,13 +131,29 @@ TEST_SHAPES = [  # (B, H, W, C, K, g), tests/test_kernels.py
 DECODE_SHAPES = [  # (B, L, H, Hkv, Dh, valid): tests/test_kernels.py, then serving
     (2, 64, 8, 2, 16, 64), (1, 128, 4, 4, 32, 81), (3, 256, 16, 8, 64, 256),
     (1, 64, 8, 1, 128, 11), (8, 2048, 32, 8, 64, 256), (8, 2048, 32, 8, 64, 2048),
+    (8, 2048, 16, 16, 256, 256), (8, 2048, 16, 16, 256, 2048),  # gemma-7b's heads
 ]
+SSD_SHAPES = [  # (Bt, L, H, P, N, Q): tests/test_kernels.py, then the prefill path
+    (2, 64, 4, 8, 16, 16), (1, 128, 2, 64, 128, 32), (2, 32, 8, 16, 8, 32),
+    (1, 64, 1, 128, 64, 64), (8, 4096, 64, 64, 128, 256),
+]
+# SSD scan vs ssd_chunked, max|d| / max|ref|: f32 at the test shapes (test_kernels.py),
+# f32 at the prefill shape (cumsum of 256 log-decays in another order), bf16 output
+SSD_TOL = {"float32": 1e-5, "float32@prefill": 1e-4, "bfloat16": 2e-2}
 SERVE = dict(arch="llama3.2-1b", batch=8, ctx=2048, tokens=256)
 # logits, kernel run vs plain replay, at every step: rms|d| <= 5e-2 rms|ref| and
 # max|d| <= 0.1 max|ref|.  The two runs differ by bf16 rounding of the softmax
 # weights, which compounds over 16 layers and over the steps' cached keys and
-# values; a wrong kernel (a head, a position, a split) changes logits by O(1).
+# values.  How far a wrong kernel moves them is not measured: at random weights
+# the mamba2 prefill's planted fault moved its logits by less than this.
 SERVE_TOL = dict(rms=5e-2, max=0.1)
+SSM = dict(arch="mamba2-1.3b", batch=8, prompt=4096, tokens=256, check_prompt=512)
+# last-position logits, f32 kernel prefill vs the plain-ssd_chunked replay (see
+# docstring)
+PREFILL_F32_TOL = dict(rms=1e-4, max=1e-4)
+# last logits, token-by-token decode vs prefill of a 512-token prompt, f32:
+# tests/test_model_consistency.py's assert_allclose(atol, rtol)
+CROSS_TOL = dict(atol=2e-4, rtol=2e-3)
 
 
 def fail(msg):
@@ -147,6 +207,24 @@ def graph_ms(torch, fn, reps=50, warm=3):
     return t0.elapsed_time(t1) / reps
 
 
+def event_ms(torch, fn, reps=3, warm=1):
+    """Mean device time of one ``fn`` call timed with CUDA events around
+    ``reps`` calls launched from Python: for calls of many milliseconds,
+    whose launch gaps are negligible and whose intermediates are too large
+    to keep for a graph."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
 def cold_graph_ms(torch, calls, reps=50):
     """``graph_ms`` of calls that take turns over ``calls``, each reading
     its own copy of the inputs: with copies together larger than the L2
@@ -175,6 +253,15 @@ def device_activity(torch, fn):
             n, ms = by_name.get(e.name(), (0, 0.0))
             by_name[e.name()] = (n + 1, ms + e.duration_ns() / 1e6)
     return by_name
+
+
+def logits_gap(got, ref):
+    """(max|d| / max|ref|, rms|d| / rms|ref|, argmax agreement) of two logit tensors."""
+    d = (got - ref).float()
+    ref = ref.float()
+    return ((d.abs().max() / ref.abs().max()).item(),
+            (d.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item(),
+            (got.argmax(-1) == ref.argmax(-1)).float().mean().item())
 
 
 def bound(t_bytes, t_ops):
@@ -214,8 +301,12 @@ def main():
     from repro_torch.kernels.decode_attn.ref import decode_attention
     from repro_torch.kernels.s2d_conv import kernel as s2d_kernel
     from repro_torch.kernels.s2d_conv.ref import s2d_conv_ref
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
     from repro_torch.launch import serve
-    from repro_torch.models import transformer
+    from repro_torch.models import mamba2, transformer
+    from repro_torch.models.model_api import build_model
 
     # the plain version and the library yardstick compute in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -246,7 +337,7 @@ def main():
         lib = mod.build(verbose=True)
         return lib, time.perf_counter() - t0
 
-    kernel_mods = {"s2d_conv": s2d_kernel, "decode_attn": dec_kernel}
+    kernel_mods = {"s2d_conv": s2d_kernel, "decode_attn": dec_kernel, "ssd_scan": ssd_kernel}
     with ThreadPoolExecutor(len(kernel_mods)) as pool:
         futures = {name: pool.submit(timed_build, mod) for name, mod in kernel_mods.items()}
         built = {name: f.result() for name, f in futures.items()}
@@ -380,6 +471,64 @@ def main():
         f"launches while comparing = {dec_kernel.decode_attn_cuda.launches}")
     report["decode_rows"] = dec_rows
 
+    ssd_rows = []
+    for Bt, L, H, Pd, N, Q in SSD_SHAPES:
+        prefill_shape = (Bt, L) == (SSM["batch"], SSM["prompt"])
+        f32 = np.float32
+        x32, la, B32, C32, dt = (torch.from_numpy(np.ascontiguousarray(a, dtype=f32)).cuda() for a in (
+            rng.standard_normal((Bt, L, H, Pd), dtype=f32),
+            -np.abs(rng.standard_normal((Bt, L, H), dtype=f32)) * 0.3,
+            rng.standard_normal((Bt, L, N), dtype=f32), rng.standard_normal((Bt, L, N), dtype=f32),
+            np.logaddexp(rng.standard_normal((Bt, L, H), dtype=f32), f32(0))))
+        for dtype in (torch.float32, torch.bfloat16):
+            # x, B, C in the dtype; log_a and dt f32, as the model feeds them
+            x, B, C = x32.to(dtype), B32.to(dtype), C32.to(dtype)
+            got = ssd_kernel.ssd_scan_cuda(x, la, B, C, dt, Q)
+            ref = ssd_chunked(x, la, B, C, dt, Q)
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or not bool(torch.isfinite(got.float()).all()):
+                fail(f"ssd_scan {(Bt, L, H, Pd, N, Q)} {dtype}: bad output")
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            dn = str(dtype).split(".")[1]
+            tol = SSD_TOL[dn + ("@prefill" if prefill_shape and dn == "float32" else "")] * scale
+            ok = err <= tol
+            reps = 5 if prefill_shape else 50
+            row = dict(
+                shape=f"Bt{Bt}.L{L}.H{H}.P{Pd}.N{N}.Q{Q}", Bt=Bt, L=L, H=H, P=Pd, N=N, Q=Q,
+                dtype=dn, max_abs_err=err, max_abs_ref=scale, tol=tol, ok=ok,
+                kernel_ms=graph_ms(torch, lambda: ssd_kernel.ssd_scan_cuda(x, la, B, C, dt, Q),
+                                   reps),
+                plain_ms=(event_ms(torch, lambda: ssd_chunked(x, la, B, C, dt, Q))
+                          if prefill_shape else
+                          graph_ms(torch, lambda: ssd_chunked(x, la, B, C, dt, Q))),
+                library_ms=None,  # no single PyTorch call computes the SSD scan
+                call_ms=paced_ms(torch, lambda: ssd_scan(x, la, B, C, dt, Q), reps, 1),
+            )
+            nbytes = (2 * x.numel() * x.element_size() + (B.numel() + C.numel()) * B.element_size()
+                      + (la.numel() + dt.numel()) * la.element_size())
+            # the products the function needs, causal half only (Q(Q+1)/2 pairs j <= i):
+            # C B^T once per (b, chunk), as B and C are shared by the heads, at the
+            # inputs' type (bf16 products are exact in f32); scores xdt, C S and the
+            # state update per (b, h, chunk) in f32 (xdt and the decays are f32)
+            n_chunks = Bt * (L // Q)
+            ops_cb = n_chunks * Q * (Q + 1) * N
+            ops_f32 = n_chunks * H * (Q * (Q + 1) * Pd + 4 * Q * N * Pd)
+            row["t_bytes_ms"] = nbytes / HBM_BPS * 1e3
+            row["t_ops_ms"] = (ops_cb / PEAK[dn] + ops_f32 / PEAK["float32"]) * 1e3
+            row["bound_ms"], row["bound_by"] = bound(row["t_bytes_ms"], row["t_ops_ms"])
+            row["main_path"] = prefill_shape
+            ssd_rows.append(row)
+            say("[kernel] ssd_scan {shape} {dtype} max_abs_err={max_abs_err:.3e} tol={tol:.3e} "
+                "kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms=None "
+                "bound_ms={bound_ms:.5f} ({bound_by}) call_ms={call_ms:.5f} ok={ok}".format(**row))
+            if not ok:
+                fail(f"ssd_scan {row['shape']} {dn}: max|d| {err} > tol {tol}")
+        del x32, la, B32, C32, dt, x, B, C, got, ref
+    say(f"[kernel] {len(ssd_rows)} ssd_scan comparisons within tolerance; "
+        f"launches while comparing = {ssd_kernel.ssd_scan_cuda.launches}")
+    report["ssd_rows"] = ssd_rows
+
     # ---- 4. main paths ------------------------------------------------------
     # (i) the batched-trial engine and the variant layers
     cells = [
@@ -388,6 +537,7 @@ def main():
     ]
     s2d_kernel.s2d_conv_cuda.launches = 0
     dec_kernel.decode_attn_cuda.launches = 0
+    ssd_kernel.ssd_scan_cuda.launches = 0
     runs = []
     for name, scen, plat, arrival, n_seeds, dur in cells:
         plans, tasks = scen.plans(PLATFORMS[plat])
@@ -413,7 +563,8 @@ def main():
     var_wall = time.perf_counter() - t0
     launches = s2d_kernel.s2d_conv_cuda.launches
     say(f"[main] counts read after the main path: s2d_conv launches = {launches}, "
-        f"decode_attn launches = {dec_kernel.decode_attn_cuda.launches}")
+        f"decode_attn launches = {dec_kernel.decode_attn_cuda.launches}, "
+        f"ssd_scan launches = {ssd_kernel.ssd_scan_cuda.launches}")
     if launches == 0:
         fail("the main path launched the s2d_conv kernel no time")
 
@@ -491,6 +642,7 @@ def main():
             cfg.d_ff, cfg.vocab_size, cfg.dtype) != (16, 2048, 32, 8, 64, 8192, 128256,
                                                       "bfloat16"):
         fail(f"{arch} is not at its published widths: {cfg}")
+    serve_heads = (cfg.n_heads, cfg.resolved_head_dim)
     kept = []  # every step's logits, for the replay
     decode_step = model.decode_step
 
@@ -502,6 +654,7 @@ def main():
     model.decode_step = keep_logits
     s2d_kernel.s2d_conv_cuda.launches = 0
     dec_kernel.decode_attn_cuda.launches = 0
+    ssd_kernel.ssd_scan_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     seq = serve.decode(model, params, tokens=n_tok, batch=batch, ctx=ctx)
@@ -510,7 +663,8 @@ def main():
     dec_launches = dec_kernel.decode_attn_cuda.launches
     model.decode_step = decode_step
     say(f"[serve] counts read after the serving path: decode_attn launches = {dec_launches}, "
-        f"s2d_conv launches = {s2d_kernel.s2d_conv_cuda.launches}")
+        f"s2d_conv launches = {s2d_kernel.s2d_conv_cuda.launches}, "
+        f"ssd_scan launches = {ssd_kernel.ssd_scan_cuda.launches}")
     if dec_launches != cfg.n_layers * n_tok:
         fail(f"the serving path launched the decode kernel {dec_launches} times, "
              f"not {cfg.n_layers} x {n_tok}")
@@ -592,6 +746,192 @@ def main():
         say("[where] serve: device time not measured "
             "(torch.profiler recorded no device activity)")
 
+    # (iii) ssm prefill: mamba2-1.3b at its published widths, bf16, after the
+    # llama weights are freed
+    del model, params, cache, seq
+    torch.cuda.empty_cache()
+    arch, Bp, Lp = SSM["arch"], SSM["batch"], SSM["prompt"]
+    t0 = time.perf_counter()
+    model, params = serve.load(arch, reduced=False, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    ssm_load_s = time.perf_counter() - t0
+    cfg = model.cfg
+    if (cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
+            cfg.ssm_chunk, cfg.vocab_size, cfg.tie_embeddings, cfg.dtype) != (
+            48, 2048, 4096, 64, 64, 128, 256, 50280, True, "bfloat16"):
+        fail(f"{arch} is not at its published widths: {cfg}")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (Bp, Lp), dtype=np.int64)).cuda()
+    batch_in = {"tokens": toks}
+    s2d_kernel.s2d_conv_cuda.launches = 0
+    dec_kernel.decode_attn_cuda.launches = 0
+    ssd_kernel.ssd_scan_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = model.prefill(params, batch_in)
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    ssd_launches = ssd_kernel.ssd_scan_cuda.launches
+    say(f"[prefill] counts read after the prefill path: ssd_scan launches = {ssd_launches}, "
+        f"decode_attn launches = {dec_kernel.decode_attn_cuda.launches}, "
+        f"s2d_conv launches = {s2d_kernel.s2d_conv_cuda.launches}")
+    if ssd_launches != cfg.n_layers:
+        fail(f"the prefill path launched the SSD kernel {ssd_launches} times, not {cfg.n_layers}")
+
+    # checks (after the counts were read): shape, finite, then the same prefill
+    # with the plain ssd_chunked in place of the kernel
+    if tuple(logits.shape) != (Bp, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail(f"prefill returned {tuple(logits.shape)} logits, or non-finite ones")
+    kernel_scan = mamba2.ssd_scan
+
+    def prefill_with(scan, m, p, inp):
+        mamba2.ssd_scan = scan
+        try:
+            return m.prefill(p, inp)
+        finally:
+            mamba2.ssd_scan = kernel_scan
+
+    def plain_scan(x, la, B, C, dt, chunk):
+        return ssd_chunked(x, la, B, C, dt, chunk)
+
+    # a planted fault: the kernel with the state dropped at every chunk boundary
+    # (no inter-chunk C S term), each chunk scanned as a row of its own
+    def state_dropped(x, la, B, C, dt, chunk):
+        n = x.shape[0] * (x.shape[1] // chunk)
+        rows = [t.contiguous().reshape(n, chunk, *t.shape[2:]) for t in (x, la, B, C, dt)]
+        return ssd_kernel.ssd_scan_cuda(*rows, chunk).reshape(x.shape)
+
+    ref = prefill_with(plain_scan, model, params, batch_in)
+    torch.cuda.synchronize()
+    if ssd_kernel.ssd_scan_cuda.launches != ssd_launches:
+        fail("the plain prefill replay launched the SSD kernel")
+    # bf16: read, not held to a limit (see docstring)
+    rel_max, rel_rms, agree = logits_gap(logits, ref)
+    bad_max, bad_rms, _ = logits_gap(prefill_with(state_dropped, model, params, batch_in), ref)
+    del ref
+    # the same weights in f32 (kept for the decode check below), two prompts: the
+    # kernel within the limit of the plain replay, the planted fault outside it
+    f32_model = build_model(dataclasses.replace(cfg, dtype="float32"), "cuda")
+    f32_params = f32_model.init(torch.Generator(device="cuda").manual_seed(0))
+    f32_in = {"tokens": toks[:2]}
+    ref32 = prefill_with(plain_scan, f32_model, f32_params, f32_in)
+    f32_max, f32_rms, _ = logits_gap(f32_model.prefill(f32_params, f32_in), ref32)
+    bad32_max, bad32_rms, _ = logits_gap(
+        prefill_with(state_dropped, f32_model, f32_params, f32_in), ref32)
+    del ref32
+    say(f"[prefill] vs the plain replay, max|d|/max|ref| and rms|d|/rms|ref|: bf16 kernel "
+        f"{rel_max:.4e} {rel_rms:.4e}, bf16 planted fault {bad_max:.4e} {bad_rms:.4e}; f32 kernel "
+        f"{f32_max:.3e} {f32_rms:.3e}, f32 planted fault {bad32_max:.3e} {bad32_rms:.3e}")
+    if not (f32_max <= PREFILL_F32_TOL["max"] and f32_rms <= PREFILL_F32_TOL["rms"]):
+        fail(f"f32 prefill logits vs the plain replay: max|d|/max|ref| {f32_max:.3e}, "
+             f"rms|d|/rms|ref| {f32_rms:.3e} (limits {PREFILL_F32_TOL})")
+    if bad32_max <= PREFILL_F32_TOL["max"] and bad32_rms <= PREFILL_F32_TOL["rms"]:
+        fail(f"the f32 prefill limits {PREFILL_F32_TOL} pass the planted fault "
+             f"(max {bad32_max:.3e}, rms {bad32_rms:.3e})")
+    # steady state: a timed prefill, its peak memory, then one under torch.profiler
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, batch_in)
+    torch.cuda.synchronize()
+    pre_wall = time.perf_counter() - t0
+    dev = device_activity(torch, lambda: model.prefill(params, batch_in))
+    dev_ms = sum(ms for _, ms in dev.values())
+    n_dev = sum(n for n, _ in dev.values())
+    ssd_ms = sum(ms for name, (_, ms) in dev.items() if "ssd_scan" in name)
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:6]
+    report["prefill"] = pre_line = dict(
+        arch=arch, batch=Bp, prompt=Lp, dtype=cfg.dtype, load_s=ssm_load_s,
+        first_wall_s=first_wall, wall_s=pre_wall, ms_per_prefill=pre_wall * 1e3,
+        prompt_tokens_per_s=Bp * Lp / pre_wall, launches=ssd_launches,
+        logits_max_rel=rel_max, logits_rms_rel=rel_rms, argmax_agree=agree,
+        fault_logits_max_rel=bad_max, fault_logits_rms_rel=bad_rms,
+        f32_fault_logits_max_rel=bad32_max, f32_fault_logits_rms_rel=bad32_rms,
+        f32_logits_max_rel=f32_max, f32_logits_rms_rel=f32_rms,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        device_ms=dev_ms, device_ops=n_dev,
+        device_busy_share=dev_ms / (pre_wall * 1e3) if n_dev else None,
+        ssd_scan_ms=ssd_ms, ssd_scan_share=ssd_ms / dev_ms if n_dev else None,
+        top_device=[dict(name=k, ops=n, ms=ms) for k, (n, ms) in top],
+    )
+    say("[prefill] {arch} {dtype} B={batch} L={prompt}: load={load_s:.2f} s first={first_wall_s:.3f} s "
+        "ms/prefill={ms_per_prefill:.3f} prompt tokens/s={prompt_tokens_per_s:.1f} "
+        "peak={peak_mem_gb:.2f} GB; plain replay: logits max|d|/max|ref| {logits_max_rel:.4e}, "
+        "rms|d|/rms|ref| {logits_rms_rel:.4e}, argmax agrees {argmax_agree:.4f}; in f32: "
+        "max {f32_logits_max_rel:.3e}, rms {f32_logits_rms_rel:.3e}".format(**pre_line))
+    if n_dev:
+        say("[where] prefill: device busy {device_ms:.3f} ms = {device_busy_share:.4f} of the wall; "
+            "{device_ops} device ops; ssd_scan {ssd_scan_ms:.3f} ms = {ssd_scan_share:.4f} of "
+            "device time".format(**pre_line))
+        for d in pre_line["top_device"]:
+            say(f"[where]   {d['ms']:.3f} ms in {d['ops']} x {d['name'][:100]}")
+    else:
+        say("[where] prefill: device time not measured "
+            "(torch.profiler recorded no device activity)")
+
+    # (iv) ssm decode: the O(1) recurrent step, which launches no kernel
+    n_tok = SSM["tokens"]
+    s2d_kernel.s2d_conv_cuda.launches = 0
+    dec_kernel.decode_attn_cuda.launches = 0
+    ssd_kernel.ssd_scan_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = serve.decode(model, params, tokens=n_tok, batch=Bp, ctx=n_tok)
+    torch.cuda.synchronize()
+    ssm_wall = time.perf_counter() - t0
+    counts = (ssd_kernel.ssd_scan_cuda.launches, dec_kernel.decode_attn_cuda.launches)
+    say(f"[decode] counts read after the ssm decode path: ssd_scan launches = {counts[0]}, "
+        f"decode_attn launches = {counts[1]}")
+    if counts != (0, 0):
+        fail(f"the ssm decode path launched kernels: ssd_scan, decode_attn = {counts}")
+    if tuple(seq.shape) != (Bp, n_tok) or not bool(((seq >= 0) & (seq < cfg.vocab_size)).all()):
+        fail(f"ssm decode returned {tuple(seq.shape)} ids, or ids outside the vocabulary")
+    dev = device_activity(torch, lambda: serve.decode(model, params, tokens=n_tok, batch=Bp,
+                                                      ctx=n_tok))
+    dev_ms = sum(ms for _, ms in dev.values())
+    n_dev = sum(n for n, _ in dev.values())
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:6]
+    # the JAX package's cross-path check at full width, in f32 as there: one
+    # prompt of two chunks, token by token through decode_step, against prefill
+    Lc = SSM["check_prompt"]
+    ctoks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, Lc), dtype=np.int64)).cuda()
+    pre = f32_model.prefill(f32_params, {"tokens": ctoks})
+    cache = f32_model.init_cache(1, Lc)
+    for i in range(Lc):
+        step_logits, cache = f32_model.decode_step(f32_params, ctoks[:, i], cache, i)
+    c_max, c_rms, c_agree = logits_gap(step_logits, pre)
+    c_excess = ((step_logits - pre).abs() - CROSS_TOL["rtol"] * pre.abs()).max().item()
+    del f32_model, f32_params, cache
+    report["ssm_decode"] = sd_line = dict(
+        arch=arch, batch=Bp, tokens=n_tok, dtype=cfg.dtype, wall_s=ssm_wall,
+        ms_per_token=ssm_wall / n_tok * 1e3, tokens_per_s=Bp * n_tok / ssm_wall,
+        ssd_scan_launches=counts[0], decode_attn_launches=counts[1],
+        device_ms=dev_ms, device_ops=n_dev, device_ops_per_step=n_dev / n_tok,
+        device_busy_share=dev_ms / (ssm_wall * 1e3) if n_dev else None,
+        top_device=[dict(name=k, ops=n, ms=ms) for k, (n, ms) in top],
+        cross_prompt=Lc, cross_max_rel=c_max, cross_rms_rel=c_rms, cross_argmax_agree=c_agree,
+        cross_max_excess=c_excess,
+    )
+    say("[decode] {arch} {dtype} B={batch} {tokens} tokens: wall={wall_s:.3f} s "
+        "ms/token={ms_per_token:.3f} tokens/s={tokens_per_s:.1f}; f32 decode vs prefill of a "
+        "{cross_prompt}-token prompt: max|d|/max|ref| {cross_max_rel:.4e}, rms|d|/rms|ref| "
+        "{cross_rms_rel:.4e}, max(|d| - rtol |ref|) {cross_max_excess:.3e}, argmax agrees "
+        "{cross_argmax_agree:.1f}".format(**sd_line))
+    if n_dev:
+        say("[where] ssm decode: device busy {device_ms:.3f} ms = {device_busy_share:.4f} of the "
+            "wall; {device_ops} device ops ({device_ops_per_step:.1f} per step)".format(**sd_line))
+        for d in sd_line["top_device"]:
+            say(f"[where]   {d['ms']:.3f} ms in {d['ops']} x {d['name'][:100]}")
+    else:
+        say("[where] ssm decode: device time not measured "
+            "(torch.profiler recorded no device activity)")
+    if not bool(torch.isfinite(step_logits).all()):
+        fail("the ssm decode produced non-finite logits")
+    if c_excess > CROSS_TOL["atol"]:
+        fail(f"f32 decode vs prefill of a {Lc}-token prompt: |d| exceeds "
+             f"{CROSS_TOL['atol']} + {CROSS_TOL['rtol']} |ref| by {c_excess:.3e}")
+
     # ---- 5. kernels line -----------------------------------------------------
     # the main path's work: its variant layers once each, B=1, f32
     main_rows = {r["shape"]: r for r in rows if r["B"] == 1 and r["dtype"] == "float32"}
@@ -609,8 +949,8 @@ def main():
     )
     # decode attention at the serving shape with the full cache valid, bf16; the
     # kernel and SDPA cold-L2, as a layer of the serving loop meets its cache
-    (main,) = [r for r in dec_rows if (r["B"], r["L"], r["H"], r["valid"], r["dtype"])
-               == (batch, ctx, cfg.n_heads, ctx, "bfloat16")]
+    (main,) = [r for r in dec_rows if (r["B"], r["L"], (r["H"], r["Dh"]), r["valid"], r["dtype"])
+               == (batch, ctx, serve_heads, ctx, "bfloat16")]
     dec_entry = dict(
         name="decode_attn", route="cuda", source="src/repro_torch/csrc/decode_attn.cu",
         replaces="src/repro/kernels/decode_attn/kernel.py:24",
@@ -619,7 +959,17 @@ def main():
         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=main["library_cold_ms"],
     )
-    report["kernels"] = [entry, dec_entry]
+    # the SSD scan at the prefill path's shape in the model's dtypes
+    (main,) = [r for r in ssd_rows if r["main_path"] and r["dtype"] == "bfloat16"]
+    ssd_entry = dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:27",
+        launches=ssd_launches, max_abs_err=main["max_abs_err"],
+        ms=main["kernel_ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None,
+    )
+    report["kernels"] = [entry, dec_entry, ssd_entry]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -5,10 +5,12 @@ The JAX package keeps layer-variant weights as ``w [C/g^2, K/g^2]``
 R x S variant behind im2col).  Its LM parameter trees keep every linear
 as ``{"w": [d_in, d_out]}`` too, but stack the blocks: each leaf under
 ``blocks`` has a leading ``n_layers`` axis (``jax.vmap`` of the block
-init).  The port keeps the same layouts at its public functions, so a
-test hands both packages the very same numbers: it draws them with
-numpy, gives the arrays to the JAX function, and passes the same tree
-through :func:`params_from_numpy` for the port.
+init).  The Mamba2 tree adds ``conv_w [W, conv_ch]`` and f32 vectors
+(``A_log``, ``D``, ``dt_bias``, ``conv_b``) that keep their dtype.  The
+port keeps the same layouts at its public functions, so a test hands
+both packages the very same numbers: it draws them with numpy, gives the
+arrays to the JAX function, and passes the same tree through
+:func:`params_from_numpy` for the port.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import torch
 
 from repro_torch.device import resolve_device
 
-#: leaf name -> rank of its JAX layout (checked on conversion)
-LAYOUT_RANKS = {"w": 2, "w_full": 4}
+#: leaf name -> rank of its JAX layout (checked on conversion); ``conv_w`` is
+#: the Mamba2 block's depthwise conv weight ``[W, conv_ch]``
+LAYOUT_RANKS = {"w": 2, "w_full": 4, "conv_w": 2}
 #: subtrees whose leaves carry one leading stacked-layer axis
 STACKED = ("blocks",)
 

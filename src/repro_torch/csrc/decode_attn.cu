@@ -31,12 +31,14 @@
 //   1. split: one block of 128 threads per (split, kv head, b).  Block `split`
 //      takes its share of [0, valid_len[b]), cut into gridDim.x equal pieces on
 //      the device (no host sync on valid_len).  Each cache row of Dh values is
-//      read by Dh / VEC neighbouring threads with one 16-byte load each (VEC = 4
-//      f32 or 8 bf16), so a warp reads whole rows at neighbouring addresses; the
-//      block reads 128 / (Dh / VEC) rows side by side and keeps UNROLL rows per
-//      thread group in flight.  Each thread holds the [G, VEC] slice of the query
-//      tile it needs and its own (m, l, acc[G][VEC]) in registers; the partial dot
-//      products are summed with warp shuffles.  Scores are kept in log2 units
+//      read by TPR = Dh / (NV * VEC) neighbouring threads with NV 16-byte loads
+//      each (VEC = 4 f32 or 8 bf16; NV = 1, or 2 where one load per thread would
+//      need more than a warp, as f32 at Dh = 256), so a warp reads whole rows at
+//      neighbouring addresses; the block reads 128 / TPR rows side by side and
+//      keeps UNROLL rows per thread group in flight.  Each thread holds the
+//      [G, NV * VEC] slice of the query tile it needs and its own
+//      (m, l, acc[G][NV * VEC]) in registers; the partial dot products are summed
+//      with warp shuffles.  Scores are kept in log2 units
 //      (scaled by log2(e) / sqrt(Dh)) so every exponential is one exp2f.  At the
 //      end the thread groups' states are merged through shared memory and the
 //      block writes one unnormalised (m, l, acc) per split to a workspace.
@@ -105,10 +107,12 @@ decode_attn_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          float* __restrict__ part_acc, int L, int Hkv, float scale_log2) {
     using V = Vec16<T>;
     constexpr int VEC = V::N;
-    constexpr int TPR = DH / VEC;           // threads per cache row
-    constexpr int NG = THREADS / TPR;       // rows read side by side
-    constexpr int UNROLL = G >= 8 ? 2 : 4;  // rows in flight per thread group
-    static_assert(DH % VEC == 0 && TPR >= 1 && TPR <= 32 && THREADS % TPR == 0, "rows");
+    constexpr int NV = DH / VEC > 32 ? 2 : 1;  // 16-byte loads per thread and row
+    constexpr int TPR = DH / (NV * VEC);       // threads per cache row
+    constexpr int NG = THREADS / TPR;          // rows read side by side
+    constexpr int UNROLL = G >= 8 ? 2 : 4;     // rows in flight per thread group
+    static_assert(DH % (NV * VEC) == 0 && TPR >= 1 && TPR <= 32 && THREADS % TPR == 0,
+                  "rows");
 
     __shared__ float sm_m[NG][G];
     __shared__ float sm_l[NG][G];
@@ -118,25 +122,29 @@ decode_attn_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int S = gridDim.x, split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
     const int tid = threadIdx.x;
     const int grp = tid / TPR;              // which of the NG rows of a step
-    const int d0 = (tid % TPR) * VEC;       // this thread's first dim of a row
+    // this thread's dims of a row: d0 + w * TPR * VEC + [0, VEC) for w < NV
+    const int d0 = (tid % TPR) * VEC;
 
     const int valid = min(max(valid_len[b], 0), L);
     const int per = (valid + S - 1) / S;
     const int start = min(split * per, valid);
     const int end = min(start + per, valid);
 
-    float qf[G][VEC];
+    constexpr int STRIDE = TPR * VEC;  // from one of a thread's vectors to its next
+    float qf[G][NV * VEC];
     const T* qp = q + ((long long)b * Hkv + kvh) * G * DH + d0;
 #pragma unroll
-    for (int g = 0; g < G; ++g) V::widen(load16(qp + g * DH), qf[g]);
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int w = 0; w < NV; ++w) V::widen(load16(qp + g * DH + w * STRIDE), qf[g] + w * VEC);
 
-    float m[G], l[G], acc[G][VEC];
+    float m[G], l[G], acc[G][NV * VEC];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
         m[g] = MASKED;
         l[g] = 0.f;
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
+        for (int i = 0; i < NV * VEC; ++i) acc[g][i] = 0.f;
     }
 
     const long long row = (long long)Hkv * DH;  // elements from one position to the next
@@ -146,25 +154,29 @@ decode_attn_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // the trip count is the block's own, so every lane reaches the shuffles
     for (int t0 = start; t0 < end; t0 += NG * UNROLL) {
-        typename V::Raw kr[UNROLL], vr[UNROLL];
+        typename V::Raw kr[UNROLL][NV], vr[UNROLL][NV];
         bool ok[UNROLL];
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
             const int t = t0 + u * NG + grp;
             ok[u] = t < end;
-            kr[u] = ok[u] ? load16(kp + t * row) : typename V::Raw{};
-            vr[u] = ok[u] ? load16(vp + t * row) : typename V::Raw{};
+#pragma unroll
+            for (int w = 0; w < NV; ++w) {
+                kr[u][w] = ok[u] ? load16(kp + t * row + w * STRIDE) : typename V::Raw{};
+                vr[u][w] = ok[u] ? load16(vp + t * row + w * STRIDE) : typename V::Raw{};
+            }
         }
         float s[UNROLL][G];
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
-            float kf[VEC];
-            V::widen(kr[u], kf);
+            float kf[NV * VEC];
+#pragma unroll
+            for (int w = 0; w < NV; ++w) V::widen(kr[u][w], kf + w * VEC);
 #pragma unroll
             for (int g = 0; g < G; ++g) {
                 float d = 0.f;
 #pragma unroll
-                for (int i = 0; i < VEC; ++i) d = fmaf(qf[g][i], kf[i], d);
+                for (int i = 0; i < NV * VEC; ++i) d = fmaf(qf[g][i], kf[i], d);
                 s[u][g] = d;
             }
         }
@@ -189,18 +201,19 @@ decode_attn_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
             m[g] = mt;
             l[g] *= corr;
 #pragma unroll
-            for (int i = 0; i < VEC; ++i) acc[g][i] *= corr;
+            for (int i = 0; i < NV * VEC; ++i) acc[g][i] *= corr;
         }
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
-            float vf[VEC];
-            V::widen(vr[u], vf);
+            float vf[NV * VEC];
+#pragma unroll
+            for (int w = 0; w < NV; ++w) V::widen(vr[u][w], vf + w * VEC);
 #pragma unroll
             for (int g = 0; g < G; ++g) {
                 const float p = ok[u] ? exp2f(s[u][g] - m[g]) : 0.f;
                 l[g] += p;
 #pragma unroll
-                for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
+                for (int i = 0; i < NV * VEC; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
             }
         }
     }
@@ -216,7 +229,10 @@ decode_attn_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) sm_acc[grp][g][d0 + i] = acc[g][i];
+        for (int w = 0; w < NV; ++w)
+#pragma unroll
+            for (int i = 0; i < VEC; ++i)
+                sm_acc[grp][g][d0 + w * STRIDE + i] = acc[g][w * VEC + i];
     __syncthreads();
     for (int e = tid; e < NG * G; e += THREADS) {
         const int r = e / G, g = e % G;
@@ -311,6 +327,8 @@ int dispatch_head_dim(const Args& a) {
         case 32: return dispatch_group<T, 32>(a);
         case 64: return dispatch_group<T, 64>(a);
         case 128: return dispatch_group<T, 128>(a);
+        // gemma-7b: 16 heads over 16 KV heads of 256
+        case 256: return a.G == 1 ? launch<T, 256, 1>(a) : (int)cudaErrorInvalidValue;
         default: return (int)cudaErrorInvalidValue;
     }
 }

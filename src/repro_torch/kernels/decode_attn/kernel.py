@@ -28,6 +28,9 @@ from repro_torch.kernels.nvcc import CudaLibrary
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 GROUPS = (1, 2, 4, 8)
+#: (head dim, query heads per KV head) the kernel is built for: every pair of
+#: HEAD_DIMS x GROUPS, and gemma-7b's (256, 1)
+SUPPORTED = frozenset((d, g) for d in HEAD_DIMS for g in GROUPS) | {(256, 1)}
 MIN_SPLIT_ROWS = 16  # fewest cache positions worth a block of their own
 
 
@@ -84,10 +87,10 @@ def decode_attn_cuda(
     if Bc != B or Dhc != Dh or Hkv == 0 or H % Hkv:
         raise ValueError(f"q {tuple(q.shape)} does not match the cache {tuple(cache_k.shape)}")
     G = H // Hkv
-    if Dh not in HEAD_DIMS or G not in GROUPS:
+    if (Dh, G) not in SUPPORTED:
         raise ValueError(
-            f"decode_attn_cuda supports head dims {HEAD_DIMS} and groups H/Hkv in {GROUPS} "
-            f"(got Dh={Dh}, G={G})"
+            f"decode_attn_cuda supports head dims {HEAD_DIMS} with groups H/Hkv in {GROUPS}, "
+            f"and head dim 256 with group 1 (got Dh={Dh}, G={G})"
         )
     if valid_len.dtype != torch.int32 or tuple(valid_len.shape) != (B,):
         raise ValueError(f"valid_len must be int32 [B={B}] (got {valid_len.dtype} "

@@ -1,0 +1,119 @@
+"""Binding of the hand-written Hopper kernel ``csrc/ssd_scan.cu``.
+
+The kernel replaces the JAX package's Pallas TPU kernel
+``kernels/ssd_scan/kernel.py::_ssd_kernel``: the Mamba2 SSD chunked scan,
+one block per (head, batch row) walking its chunks in order with the
+state in shared memory (see the note at the top of the CUDA source).
+
+The source is compiled with ``nvcc`` at first use into a shared library
+with a plain C interface and loaded with ctypes (:mod:`..nvcc`).
+Nothing is built or imported from CUDA when this module is imported.
+
+:func:`ssd_scan_cuda` counts its launches in ``ssd_scan_cuda.launches``
+(a plain integer, added to only where the kernel is launched), so a run
+can show that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.nvcc import CudaLibrary
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (8, 16, 32, 64, 128)  # P
+SMEM_MAX = 232448  # bytes of shared memory one block may use on Hopper
+_TILE = 64  # rows of the kernel's C, B and score tiles
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.ssd_scan
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary("ssd_scan.cu", _bind)
+build = LIBRARY.build
+load = LIBRARY.load
+
+
+def smem_bytes(P: int, N: int, Q: int) -> int:
+    """Shared memory of one block: the state [N, P], xdt [Q, P], the
+    chunk's cumsum and decay weights [Q], a C and a B tile [64, N+1] and
+    the score tile [64, 65], all f32 (``smem_bytes`` in the source)."""
+    return 4 * (N * P + Q * P + 2 * _TILE * (N + 1) + _TILE * (_TILE + 1) + 2 * Q)
+
+
+def ssd_scan_cuda(
+    x: torch.Tensor,  # [Bt, L, H, P]
+    log_a: torch.Tensor,  # [Bt, L, H]
+    B: torch.Tensor,  # [Bt, L, N]
+    C: torch.Tensor,  # [Bt, L, N]
+    dt: torch.Tensor,  # [Bt, L, H]
+    chunk: int = 256,
+) -> torch.Tensor:
+    """The kernel on CUDA tensors -> y [Bt, L, H, P] in x's dtype.
+
+    ``x``, ``B`` and ``C`` are float32 or bfloat16, of one dtype;
+    ``log_a`` and ``dt`` are cast to float32 (the Pallas kernel's first
+    step).  Checks device, dtypes, shapes, contiguity and ``L % Q == 0``
+    (``Q = min(chunk, L)``), allocates the output, launches on the current
+    stream without synchronising, and raises if the launch is refused."""
+    dev = x.device
+    if dev.type != "cuda" or any(t.device != dev for t in (log_a, B, C, dt)):
+        raise ValueError(
+            "ssd_scan_cuda needs x, log_a, B, C and dt on one CUDA device (got "
+            f"{x.device}, {log_a.device}, {B.device}, {C.device}, {dt.device}); "
+            "CPU tensors go to ref.ssd_chunked"
+        )
+    if x.dtype not in _DTYPE_CODES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(
+            "ssd_scan_cuda takes float32 or bfloat16 x, B and C of one dtype "
+            f"(got {x.dtype}, {B.dtype}, {C.dtype})"
+        )
+    if not (log_a.is_floating_point() and dt.is_floating_point()):
+        raise ValueError(f"log_a and dt must be floating point (got {log_a.dtype}, {dt.dtype})")
+    if x.dim() != 4 or B.dim() != 3:
+        raise ValueError(f"x must be [Bt, L, H, P] and B, C [Bt, L, N] (got {tuple(x.shape)}, "
+                         f"{tuple(B.shape)})")
+    Bt, L, H, P = x.shape
+    N = B.shape[-1]
+    if (tuple(B.shape) != (Bt, L, N) or tuple(C.shape) != (Bt, L, N)
+            or tuple(log_a.shape) != (Bt, L, H) or tuple(dt.shape) != (Bt, L, H)):
+        raise ValueError(
+            f"shapes do not match x [Bt, L, H, P] = {tuple(x.shape)}: B {tuple(B.shape)}, "
+            f"C {tuple(C.shape)}, log_a {tuple(log_a.shape)}, dt {tuple(dt.shape)}"
+        )
+    if P not in HEAD_DIMS:
+        raise ValueError(f"ssd_scan_cuda supports head dims P in {HEAD_DIMS} (got {P})")
+    Q = min(chunk, L)
+    if Q <= 0 or L % Q:
+        raise ValueError(f"sequence length {L} is not a multiple of the chunk {Q}")
+    if smem_bytes(P, N, Q) > SMEM_MAX:
+        raise ValueError(
+            f"P={P}, N={N}, Q={Q} needs {smem_bytes(P, N, Q)} bytes of shared memory per "
+            f"block, more than the {SMEM_MAX} a block may use"
+        )
+    if not all(t.is_contiguous() for t in (x, log_a, B, C, dt)):
+        raise ValueError("ssd_scan_cuda needs contiguous x, log_a, B, C and dt")
+    log_a = log_a.to(torch.float32)
+    dt = dt.to(torch.float32)
+    out = torch.empty_like(x)
+    if Bt * L * H == 0:
+        return out
+    lib = load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.ssd_scan(
+            x.data_ptr(), log_a.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(),
+            out.data_ptr(), Bt, L, H, P, N, Q, _DTYPE_CODES[x.dtype], stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan launch failed: cudaError {rc}")
+    ssd_scan_cuda.launches += 1
+    return out
+
+
+ssd_scan_cuda.launches = 0

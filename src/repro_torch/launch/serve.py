@@ -1,12 +1,16 @@
-"""Serving entry point of the torch port: greedy decode loop for the dense family.
+"""Serving entry point of the torch port: greedy decode loop for the dense and ssm families.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --tokens 16
 
 Port of the JAX package's ``launch/serve.py``: cache init, one
-``decode_step`` per token, greedy sampling.  It runs on the CUDA card
-(every attention step through the hand-written decode-attention kernel)
+``decode_step`` per token from token 0, greedy sampling (like the JAX
+loop, it hands no prefill state to decode).  It runs on the CUDA card
 unless the caller passes ``device="cpu"``; without a card and without
-that, it raises.  Weights are drawn at random from ``seed``.
+that, it raises.  On the card a dense model runs every attention step
+through the hand-written decode-attention kernel; the ssm family
+(mamba2) decodes by its O(1) recurrent update, which launches no kernel
+of the port.  Weights are drawn at random from ``seed``.
 :func:`run` is :func:`load` followed by :func:`decode`; a caller that
 wants the weights as well (to replay the same steps) calls the two.
 """

@@ -4,11 +4,13 @@ Port of the JAX package's ``models/model_api.py`` for serving.
 ``build_model(cfg, device)`` returns a :class:`Model` bundle:
 
   init(generator) -> params                  (weights drawn on the generator's device)
+  prefill(params, batch) -> logits           (last-position logits, f32)
   init_cache(batch, max_len) -> cache
   decode_step(params, token, cache, pos) -> (logits, cache)   (cache updated in place)
 
 ``SHAPES`` / :class:`ShapeSpec` are the JAX package's shape kinds, as data.
-Only the dense family is ported so far; ``loss``, ``prefill`` and the
+The dense family (decode) and the ssm family (prefill and decode) are
+ported so far; the other families, dense prefill, ``loss`` and the
 sharding specs (``param_specs``, ``cache_specs``, ``input_specs``,
 ``batch_specs``) come with later slices.
 """
@@ -21,7 +23,7 @@ from typing import Any, Callable, Dict, Tuple, Union
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, transformer
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -44,7 +46,6 @@ SHAPES: Dict[str, ShapeSpec] = {
 
 #: families not ported yet -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "ssm": "ROADMAP A7 (Mamba2 / SSD, with the ssd_scan kernel B3)",
     "moe": "ROADMAP A8 (remaining model families)",
     "hybrid": "ROADMAP A8 (remaining model families)",
     "encdec": "ROADMAP A8 (remaining model families)",
@@ -60,6 +61,17 @@ class Model:
     init_cache: Callable[[int, int], Params]
     decode_step: Callable[..., Tuple[torch.Tensor, Params]]
 
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Forward over ``batch["tokens"] [B, L]`` -> last-position logits
+        ``[B, vocab]`` (f32).  The ssm family runs every block's SSD scan
+        through ``kernels.ssd_scan.ops.ssd_scan``."""
+        if self.cfg.family == "ssm":
+            return mamba2.ssm_prefill(self.cfg, params, batch["tokens"])
+        raise NotImplementedError(
+            f"prefill of family '{self.cfg.family}' ({self.cfg.name}) is not ported to torch "
+            "yet: ROADMAP A6 / A8 (dense prefill: flash_attention, forward_hidden_dense)"
+        )
+
 
 def build_model(cfg: ModelConfig, device: Union[str, torch.device, None] = None) -> Model:
     """The model bundle on ``device`` (the CUDA card when None)."""
@@ -68,9 +80,17 @@ def build_model(cfg: ModelConfig, device: Union[str, torch.device, None] = None)
         raise NotImplementedError(
             f"family '{fam}' ({cfg.name}) is not ported to torch yet: {NOT_PORTED[fam]}"
         )
-    if fam != "dense":
+    if fam not in ("dense", "ssm"):
         raise ValueError(f"unknown family '{fam}'")
     dev = resolve_device(device)
+    if fam == "ssm":
+        return Model(
+            cfg,
+            dev,
+            init=lambda gen: mamba2.init_ssm_model(gen, cfg),
+            init_cache=lambda B, L: mamba2.ssm_init_cache(cfg, B, L, dev),
+            decode_step=lambda p, t, c, pos: mamba2.ssm_decode_step(cfg, p, t, c, pos),
+        )
     return Model(
         cfg,
         dev,

@@ -13,7 +13,14 @@ runs on a machine that has only torch:
   and bf16 (``2e-2 * max|ref|``: the plain version rounds the softmax
   weights to bf16), at the ``tests/test_kernels.py`` shapes, the serving
   path's shape, a ragged cache length, from one to 64 blocks per row's
-  cache, and per-row valid lengths; serving goes through the kernel;
+  cache, per-row valid lengths, and gemma-7b's head shape (Dh = 256,
+  one query head per KV head); serving goes through the kernel;
+* the SSD-scan kernel (``csrc/ssd_scan.cu``) against the oracle
+  ``ssd_naive`` (f32, ``tests/test_kernels.py``'s rel < 1e-5) and the
+  plain ``ssd_chunked`` (bf16 output: 2e-2 * max|ref|) at the
+  ``tests/test_kernels.py`` shapes, the model's dtypes (x, B, C bf16;
+  log_a, dt f32), the wrapper's rejections, and a reduced mamba2 prefill
+  through the kernel, one launch per layer;
 * ``simulate_batch`` on the card against the host SoA engine.
 """
 
@@ -103,6 +110,7 @@ DECODE_SHAPES = [  # (B, L, H, Hkv, Dh, pos): tests/test_kernels.py, serving, ra
     (2, 77, 16, 2, 32, 76), (2, 100, 8, 8, 128, 0),
     (33, 40, 16, 8, 32, 39),  # B * Hkv fills the card: one block per row
     (1, 1024, 8, 1, 128, 1000),  # 64 blocks share one row's cache
+    (2, 300, 16, 16, 256, 299), (8, 2048, 16, 16, 256, 2047),  # gemma-7b's heads
 ]
 
 
@@ -194,3 +202,117 @@ def test_serve_on_the_card_goes_through_the_kernel(card):
     seq = serve.decode(model, params, tokens=5, batch=2, ctx=8)
     assert decode_attn_cuda.launches == before + 5 * model.cfg.n_layers
     assert seq.shape == (2, 5) and seq.device.type == "cuda"
+
+
+SSD_SHAPES = [  # (Bt, L, H, P, N, Q): tests/test_kernels.py, the reduced model, one chunk
+    (2, 64, 4, 8, 16, 16), (1, 128, 2, 64, 128, 32), (2, 32, 8, 16, 8, 32),
+    (1, 64, 1, 128, 64, 64), (1, 64, 2, 16, 8, 16), (2, 32, 8, 32, 16, 4),
+    (2, 512, 4, 64, 128, 256), (1, 96, 3, 32, 16, 256),
+]
+
+
+def _ssd_inputs(card, Bt, L, H, Pd, N, seed):
+    """tests/test_kernels.py's distributions, drawn with numpy, in f32."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    draw = [rng.standard_normal((Bt, L, H, Pd), dtype=f),
+            -np.abs(rng.standard_normal((Bt, L, H), dtype=f)) * 0.3,
+            rng.standard_normal((Bt, L, N), dtype=f), rng.standard_normal((Bt, L, N), dtype=f),
+            np.logaddexp(rng.standard_normal((Bt, L, H), dtype=f), f(0))]
+    return [torch.from_numpy(np.asarray(a, dtype=f)).to(card) for a in draw]
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max() / (ref.float().abs().max() + 1e-9)).item()
+
+
+@pytest.mark.parametrize("Bt,L,H,Pd,N,Q", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain_version(card, Bt, L, H, Pd, N, Q, dtype):
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_naive
+
+    x, la, B, C, dt = _ssd_inputs(card, Bt, L, H, Pd, N, L + N)
+    x, B, C = x.to(dtype), B.to(dtype), C.to(dtype)  # log_a and dt stay f32, as in the model
+    before = ssd_scan_cuda.launches
+    got = ssd_scan(x, la, B, C, dt, Q)
+    assert ssd_scan_cuda.launches == before + 1  # a CUDA tensor launches the kernel
+    plain = ssd_chunked(x, la, B, C, dt, Q)
+    torch.cuda.synchronize()
+    assert got.shape == plain.shape and got.dtype == dtype
+    assert bool(torch.isfinite(got.float()).all())
+    if dtype == torch.float32:
+        assert _rel(got, ssd_naive(x, la, B, C, dt)) < 1e-5
+        assert _rel(got, plain) < 1e-5
+    else:
+        assert _rel(got, plain) < 2e-2
+
+
+def test_ssd_kernel_takes_all_five_inputs_in_bf16(card):
+    """tests/test_kernels.py::test_ssd_scan_dtypes: the wrapper casts log_a
+    and dt to f32; rel < 0.15 against the oracle."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_naive
+
+    ins = [t.to(torch.bfloat16) for t in _ssd_inputs(card, 1, 64, 2, 16, 8, 7)]
+    got = ssd_scan_cuda(*ins, 16)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert _rel(got, ssd_naive(*ins)) < 0.15
+
+
+def test_ssd_kernel_wrapper_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+    x, la, B, C, dt = _ssd_inputs(card, 1, 32, 2, 16, 8, 1)
+    before = ssd_scan_cuda.launches
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ssd_scan_cuda(x.half(), la, B.half(), C.half(), dt, 16)
+    with pytest.raises(ValueError, match="one dtype"):
+        ssd_scan_cuda(x, la, B.bfloat16(), C, dt, 16)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_scan_cuda(x, la, B, C, dt, 12)
+    with pytest.raises(ValueError, match="do not match"):
+        ssd_scan_cuda(x, la[:, :16], B, C, dt, 16)
+    with pytest.raises(ValueError, match="head dims"):
+        ssd_scan_cuda(torch.zeros((1, 32, 2, 48), device=card), la, B, C, dt, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros((1, 256, 1, 128), device=card)
+        bc = torch.zeros((1, 256, 128), device=card)
+        f = torch.zeros((1, 256, 1), device=card)
+        ssd_scan_cuda(big, f, bc, bc, f, 256)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), la, B, C, dt, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_cuda(x.cpu(), la, B, C, dt, 16)
+    assert ssd_scan_cuda.launches == before
+
+
+def test_mamba2_prefill_on_the_card_goes_through_the_kernel(card):
+    """A reduced mamba2 (f32) prefills on the card with one kernel launch per
+    layer, and its logits equal the same weights' prefill on the CPU
+    (tests/test_model_consistency.py's atol 2e-4, rtol 2e-3)."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.launch import serve
+    from repro_torch.models.model_api import build_model
+
+    model, params = serve.load("mamba2-1.3b", reduced=True)
+    assert model.device.type == "cuda"
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, (2, 4 * model.cfg.ssm_chunk), dtype=np.int32))
+    before = ssd_scan_cuda.launches
+    got = model.prefill(params, {"tokens": toks.to(card)})
+    assert ssd_scan_cuda.launches == before + model.cfg.n_layers
+    host = build_model(model.cfg, device="cpu")
+    want = host.prefill(_to_cpu(params), {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-3)
+    seq = serve.decode(model, params, tokens=4, batch=2, ctx=8)
+    assert ssd_scan_cuda.launches == before + model.cfg.n_layers  # decode: no kernel
+    assert seq.shape == (2, 4)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()

@@ -21,7 +21,9 @@ import jax.numpy as jnp
 from repro.kernels.decode_attn.ops import gqa_decode_attention as j_gqa
 from repro.models import common as J
 
-from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+from repro_torch.configs import get_config
+from repro_torch.configs.registry import ARCHS
+from repro_torch.kernels.decode_attn.kernel import SUPPORTED, decode_attn_cuda
 from repro_torch.kernels.decode_attn.ops import gqa_decode_attention
 from repro_torch.kernels.decode_attn.ref import decode_attention
 from repro_torch.models import common as P
@@ -125,3 +127,12 @@ def test_kernel_wrapper_never_takes_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         decode_attn_cuda(q, k, k, torch.ones((1,), dtype=torch.int32))
     assert decode_attn_cuda.launches == before
+
+
+def test_decode_kernel_takes_every_dense_configs_head_shape():
+    """Every dense config of the registry decodes through the kernel on the
+    card: its (head dim, query heads per KV head) is one the kernel takes."""
+    dense = [get_config(a) for a in ARCHS if get_config(a).family == "dense"]
+    assert {c.name for c in dense} >= {"gemma-7b", "llama3.2-1b"}
+    for c in dense:
+        assert (c.resolved_head_dim, c.n_heads // c.n_kv_heads) in SUPPORTED, c.name

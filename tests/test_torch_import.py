@@ -193,6 +193,32 @@ def test_params_from_numpy_takes_a_stacked_lm_tree():
                               "blocks/mlp/w_down/w": (nl, 2 * d, d), "lm_head/w": (d, v)})
 
 
+def test_params_from_numpy_takes_the_ssm_tree():
+    """The Mamba2 tree as JAX stacks it: ``in_proj/w`` and ``out_proj/w``
+    rank 2 + 1, ``conv_w [n_layers, W, conv_ch]``, and the f32 vectors kept
+    f32 beside bf16 weights."""
+    import numpy as np
+
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    from repro_torch.convert import params_from_numpy
+
+    nl, d, ch, h = 2, 8, 12, 4
+    bf = ml_dtypes.bfloat16
+    tree = {"blocks": {
+        "in_proj": {"w": np.ones((nl, d, 2 * ch), bf)},
+        "conv_w": np.ones((nl, 4, ch), bf),
+        "conv_b": np.zeros((nl, ch), np.float32),
+        "A_log": np.ones((nl, h), np.float32),
+        "out_proj": {"w": np.ones((nl, ch, d), bf)},
+    }}
+    p = params_from_numpy(tree, device="cpu")["blocks"]
+    assert p["conv_w"].shape == (nl, 4, ch) and p["conv_w"].dtype == torch.bfloat16
+    assert p["A_log"].dtype == p["conv_b"].dtype == torch.float32
+    assert p["in_proj"]["w"].shape == (nl, d, 2 * ch)
+    with pytest.raises(ValueError, match="'blocks/conv_w'.*rank 3"):
+        params_from_numpy({"blocks": {"conv_w": np.ones((4, ch), bf)}}, device="cpu")
+
+
 def test_params_from_numpy_keeps_bf16_bits():
     import numpy as np
 
