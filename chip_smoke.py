@@ -18,14 +18,18 @@ Phases, each on lines of its own; any failure exits non-zero:
    s2d-conv (``ref.s2d_conv_ref``): at the ``tests/test_kernels.py``
    shapes and at every pointwise variant layer the ``multicam_heavy`` @
    ``6k_1ws2os`` plans select, for batches 1 and 8 in f32 and bf16;
-   tolerances: f32 max|d| <= 1e-4 max|ref| (another accumulation order),
-   bf16 <= 2e-2 max|ref| (bf16 output rounding).  Decode attention
+   tolerances: f32 max|d| <= 1e-4 max|ref| (split-TF32 products summed in
+   another order), bf16 <= 2e-2 max|ref| (bf16 output rounding); then
+   each main-path GEMM's launch plan (tile, split, blocks) and the
+   kernel's time at every split the planner weighs.  Decode attention
    (``ref.decode_attention``): at the ``tests/test_kernels.py`` shapes
    and at the serving shapes of llama3.2-1b (B=8, L=2048, H=32, Hkv=8,
    Dh=64) and gemma-7b (B=8, L=2048, H=16, Hkv=16, Dh=256) with 256 and
-   2048 valid positions, in f32 and bf16; tolerances: f32
+   2048 valid positions, in f32 and bf16, the grid sized from the valid
+   length as the serving path sizes it from ``pos + 1``; tolerances: f32
    |d| <= 1e-5 + 1e-4 |ref| (another summation order), bf16 max|d| <=
-   2e-2 max|ref| (the plain version rounds the softmax weights to bf16).
+   2e-2 max|ref| (both versions round the softmax weights to bf16, the
+   kernel before normalising them).
    SSD scan (``ref.ssd_chunked``): at the ``tests/test_kernels.py`` shapes
    in f32 and bf16 (x, B, C in the dtype; log_a, dt f32, as the model
    feeds them), and at the prefill path's shape (Bt=8, L=4096, H=64,
@@ -39,13 +43,16 @@ Phases, each on lines of its own; any failure exits non-zero:
    ``scaled_dot_product_attention(..., enable_gqa=True)`` on transposed
    copies of the valid positions: yardsticks the port never calls; no
    single PyTorch call computes the SSD scan), the bound max(bytes /
-   3.35 TB/s, operations / peak; for the SSD scan the products it needs:
-   the causal half, and C Bᵀ once per batch row and chunk, not per
-   head), and the kernel wrapper's cost per call
-   when launched back to back from Python.  At the serving shapes the
-   decode kernel and SDPA are also timed cold (calls taking turns over
-   copies of the cache twice the 50 MB L2), and the kernels line takes
-   those;
+   3.35 TB/s, operations / peak; for s2d-conv in f32 the faster of the
+   CUDA cores and split TF32, three products at the TF32 peak; for the
+   SSD scan the products it needs: the causal half, and C Bᵀ once per
+   batch row and chunk, not per head), and the kernel wrapper's cost per
+   call when launched back to back from Python.  At the serving shapes
+   the decode kernel and SDPA are also timed cold (calls taking turns
+   over copies of the cache twice the 50 MB L2), and the kernels line
+   takes those; at the serving shape, the device kernels of one decode
+   call (``torch.profiler``: must be 1) and the cold time of every
+   split of the cache (1 to 8 blocks a cluster) beside the planner's;
 4. main paths, each with its launch count set to 0 just before and read
    just after:
    (i) ``simulate_batch`` on the card for (a) ``multicam_heavy`` @
@@ -55,9 +62,10 @@ Phases, each on lines of its own; any failure exits non-zero:
    in (a) run through ``run_pointwise_variants`` (the s2d-conv kernel).
    Every lane's fingerprint must equal the host ``simulate(engine="soa")``,
    (a) must apply variants, and the variant outputs must match the plain
-   version.  Then the engine runs cell (b) again under ``torch.profiler``:
-   the device's busy share of the first run's wall, and device ops per
-   loop iteration;
+   version.  Then one pass of the variant layers under ``torch.profiler``
+   (device time, device ops, the kernel's share), and the engine runs
+   cell (b) again under it: the device's busy share of the first run's
+   wall, and device ops per loop iteration;
    (ii) serving: ``repro_torch.launch.serve`` at the published widths of
    ``llama3.2-1b`` in bf16 (16 layers, d_model 2048, 32 heads over 8 KV
    heads, vocab 128256), batch 8, a 2048-position cache, 256 greedy
@@ -122,7 +130,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BPS = 3.35e12                      # H100 SXM data sheet
 L2_BYTES = 50e6                        # H100 SXM data sheet
-PEAK = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 dense tensor
+PEAK = {"float32": 67e12, "bfloat16": 989e12,   # f32 CUDA cores; bf16 dense tensor
+        "tf32": 495e12}                          # dense TF32 tensor
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TEST_SHAPES = [  # (B, H, W, C, K, g), tests/test_kernels.py
     (2, 8, 8, 16, 32, 2), (1, 16, 16, 64, 64, 2), (2, 12, 12, 36, 72, 3),
@@ -272,10 +281,16 @@ def bound(t_bytes, t_ops):
 
 def floor_times(x, w, out):
     """(ms over HBM, ms at peak) for one call: every input read once and
-    the output written once; 2*M*Cv*Kv operations."""
+    the output written once; 2*M*Cv*Kv operations.  An f32-accurate
+    product takes the faster of the CUDA cores and split TF32 (three
+    products at the TF32 peak)."""
     nbytes = (x.numel() + w.numel() + out.numel()) * x.element_size()
     ops = 2.0 * (x.numel() // w.shape[0]) * w.shape[0] * w.shape[1]
-    return nbytes / HBM_BPS * 1e3, ops / PEAK[str(x.dtype).split(".")[1]] * 1e3
+    dn = str(x.dtype).split(".")[1]
+    t_ops = ops / PEAK[dn]
+    if dn == "float32":
+        t_ops = min(t_ops, 3 * ops / PEAK["tf32"])
+    return nbytes / HBM_BPS * 1e3, t_ops * 1e3
 
 
 def main():
@@ -399,6 +414,30 @@ def main():
     say(f"[kernel] {len(rows)} comparisons within tolerance; "
         f"launches while comparing = {s2d_kernel.s2d_conv_cuda.launches}")
     report["kernel_rows"] = rows
+    # the launch plan of each main-path GEMM (B=1)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    gemms = {}
+    for v in main_layers:
+        g2 = v.gamma * v.gamma
+        gemms.setdefault((v.H * v.W * g2, v.C // g2, v.K // g2), []).append(v.name)
+    # and the kernel's time at every split the planner weighs (B=1, warm L2)
+    report["s2d_plans"] = []
+    for (M, Cv, Kv), names in gemms.items():
+        x32 = torch.from_numpy(rng.standard_normal((1, M, 1, Cv), dtype=np.float32)).cuda()
+        w32 = torch.from_numpy(rng.standard_normal((Cv, Kv), dtype=np.float32)).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = x32.to(dtype), w32.to(dtype)
+            plan = s2d_kernel.plan_s2d(M, Cv, Kv, dtype, n_sm)
+            line = dict(M=M, Cv=Cv, Kv=Kv, dtype=str(dtype).split(".")[1], layers=names,
+                        tile=[s2d_kernel.TILE_M, s2d_kernel.TILE_N, plan.tile_k],
+                        slabs=plan.slabs, split=plan.split, blocks=plan.blocks, sms=n_sm,
+                        ms_by_split={S: graph_ms(torch, lambda S=S: s2d_kernel.s2d_conv_cuda(
+                            x, w, 1, split=S)) for S in s2d_kernel.SPLITS if S <= plan.slabs})
+            report["s2d_plans"].append(line)
+            say("[plan] s2d_conv {M}x{Cv}x{Kv} {dtype} ({n} layers): tile {tile}, {slabs} slabs, "
+                "split {split}, {blocks} blocks on {sms} SMs; ms by split ".format(
+                    n=len(names), **line)
+                + " ".join(f"{S}:{ms:.5f}" for S, ms in line["ms_by_split"].items()))
 
     dec_rows = []
     for B, L, H, Hkv, Dh, valid in DECODE_SHAPES:
@@ -411,7 +450,7 @@ def main():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
             q3 = q[:, 0]
-            got = dec_kernel.decode_attn_cuda(q3, k, v, vl)[:, None]
+            got = dec_kernel.decode_attn_cuda(q3, k, v, vl, bound=valid)[:, None]
             ref = decode_attention(q, k, v, pos)
             torch.cuda.synchronize()
             if got.shape != ref.shape or not bool(torch.isfinite(got.float()).all()):
@@ -433,9 +472,11 @@ def main():
             sdpa = torch.nn.functional.scaled_dot_product_attention
             row = dict(
                 shape=f"B{B}.L{L}.H{H}.Hkv{Hkv}.Dh{Dh}", B=B, L=L, H=H, Hkv=Hkv, Dh=Dh,
-                valid=valid, dtype=dn, splits=dec_kernel.default_splits(q.device, B, Hkv, L),
+                valid=valid, dtype=dn,
+                splits=dec_kernel.plan_splits(B, Hkv, valid, 2 * Dh * q.element_size(), n_sm),
                 max_abs_err=err, max_abs_ref=scale, tol=tol, ok=ok,
-                kernel_ms=graph_ms(torch, lambda: dec_kernel.decode_attn_cuda(q3, k, v, vl)),
+                kernel_ms=graph_ms(torch, lambda: dec_kernel.decode_attn_cuda(q3, k, v, vl,
+                                                                              bound=valid)),
                 plain_ms=graph_ms(torch, lambda: decode_attention(q, k, v, pos)),
                 library_ms=graph_ms(torch, lambda: sdpa(qt, kt, vt, enable_gqa=True)),
                 call_ms=paced_ms(torch, lambda: gqa_decode_attention(q, k, v, pos, vl)),
@@ -446,8 +487,25 @@ def main():
                 n_copies = int(-(-2 * L2_BYTES // nbytes))
                 copies = [(k.clone(), v.clone()) for _ in range(n_copies)]
                 row["cold_ms"] = cold_graph_ms(torch, [
-                    lambda kc=kc, vc=vc: dec_kernel.decode_attn_cuda(q3, kc, vc, vl)
+                    lambda kc=kc, vc=vc: dec_kernel.decode_attn_cuda(q3, kc, vc, vl, bound=valid)
                     for kc, vc in copies])
+                if (H, Dh, dn) == (32, 64, "bfloat16"):
+                    # llama3.2-1b's heads: the device kernels of one call, and
+                    # the cold time of every split beside the planner's
+                    dev = device_activity(torch, lambda: dec_kernel.decode_attn_cuda(
+                        q3, k, v, vl, bound=valid))
+                    row["device_kernels_per_call"] = sum(n for n, _ in dev.values())
+                    row["cold_ms_by_splits"] = {S: cold_graph_ms(torch, [
+                        lambda kc=kc, vc=vc, S=S: dec_kernel.decode_attn_cuda(q3, kc, vc, vl,
+                                                                                splits=S)
+                        for kc, vc in copies]) for S in range(1, dec_kernel.MAX_SPLIT + 1)}
+                    say(f"[plan] decode_attn {row['shape']} valid={valid} {dn}: device kernels "
+                        f"per call {row['device_kernels_per_call']} ({sorted(dev)}); planner "
+                        f"splits {row['splits']}; cold ms by splits "
+                        + " ".join(f"{S}:{ms:.5f}" for S, ms in row["cold_ms_by_splits"].items()))
+                    if row["device_kernels_per_call"] != 1:
+                        fail(f"one decode_attn call ran {row['device_kernels_per_call']} device "
+                             "kernels, not 1")
                 copies = [(kc[:, :valid].transpose(1, 2).contiguous(),
                            vc[:, :valid].transpose(1, 2).contiguous()) for kc, vc in copies]
                 row["library_cold_ms"] = cold_graph_ms(torch, [
@@ -601,6 +659,32 @@ def main():
         max_err = max(max_err, err)
     say(f"[main] {len(run_layers)} pointwise variant layers of models {applied} ran in "
         f"{var_wall * 1e3:.3f} ms wall; outputs match the plain version (max|d| {max_err:.3e})")
+
+    # where the variant layers' time goes: one pass under torch.profiler
+    dev = device_activity(torch, lambda: run_pointwise_variants(
+        [a_plans[m] for m in applied], device="cuda"))
+    dev_ms = sum(ms for _, ms in dev.values())
+    n_dev = sum(n for n, _ in dev.values())
+    s2d_ms = sum(ms for name, (_, ms) in dev.items() if "s2d_conv" in name)
+    s2d_n = sum(n for name, (n, _) in dev.items() if "s2d_conv" in name)
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:5]
+    report["variant_where"] = vw = dict(
+        layers=len(run_layers), wall_ms=var_wall * 1e3, device_ms=dev_ms, device_ops=n_dev,
+        device_busy_share=dev_ms / (var_wall * 1e3) if n_dev else None,
+        s2d_conv_ms=s2d_ms, s2d_conv_kernels=s2d_n,
+        s2d_conv_share=s2d_ms / dev_ms if n_dev else None,
+        top_device=[dict(name=k, ops=n, ms=ms) for k, (n, ms) in top],
+    )
+    if n_dev:
+        say("[where] variant layers: wall={wall_ms:.3f} ms; device busy {device_ms:.4f} ms = "
+            "{device_busy_share:.4f} of the wall; {device_ops} device ops; s2d_conv "
+            "{s2d_conv_ms:.4f} ms in {s2d_conv_kernels} kernels = {s2d_conv_share:.4f} of device "
+            "time".format(**vw))
+        for d in vw["top_device"]:
+            say(f"[where]   {d['ms']:.4f} ms in {d['ops']} x {d['name'][:100]}")
+    else:
+        say("[where] variant layers: device time not measured "
+            "(torch.profiler recorded no device activity)")
 
     # where the engine's time goes: cell (b) once more, under
     # torch.profiler; the profiler's own host cost stretches only this

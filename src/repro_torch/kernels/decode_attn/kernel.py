@@ -1,11 +1,23 @@
-"""Binding of the hand-written Hopper kernel ``csrc/decode_attn.cu``.
+"""Binding of the hand-written Hopper kernel ``csrc/decode_attn.cu``, and its grid planner.
 
 The kernel replaces the JAX package's Pallas TPU kernel
 ``kernels/decode_attn/kernel.py::_decode_attn_kernel``: GQA attention of
 one query token against a KV cache, reading only the first
-``valid_len[b]`` positions of each row, in two passes (the cache split
-across blocks, then a merge of the splits' online-softmax states; see
-the note at the top of the CUDA source).
+``valid_len[b]`` positions of each row.  It is one launch: each
+``(b, kv head)`` is a thread-block cluster of ``S`` blocks that stream
+their shares of the cache through a ``cp.async`` ring in shared memory
+and merge their online-softmax states through distributed shared memory
+(see the note at the top of the CUDA source).  No workspace, no second
+pass.  bf16 runs its products on the tensor cores, f32 on the CUDA
+cores.
+
+:func:`plan_splits` sizes the grid on the host, in plain Python, from an
+upper bound on the valid length (the cache length, or ``pos + 1`` where
+the caller knows it), ``B * Hkv``, the bytes of a cache position and the
+SM count, never from ``valid_len`` itself, so a CUDA graph can replay
+the launch;
+:func:`split_rows` is the device's division of ``[0, valid_len[b])``
+among a cluster's blocks.
 
 The source is compiled with ``nvcc`` at first use into a shared library
 with a plain C interface and loaded with ctypes (:mod:`..nvcc`).
@@ -13,13 +25,14 @@ Nothing is built or imported from CUDA when this module is imported.
 
 :func:`decode_attn_cuda` counts its launches in
 ``decode_attn_cuda.launches`` (a plain integer, added to only where the
-kernel is launched; one launch runs both passes), so a run can show that
-its main path went through the kernel.
+kernel is launched), so a run can show that its main path went through
+the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,12 +44,18 @@ GROUPS = (1, 2, 4, 8)
 #: (head dim, query heads per KV head) the kernel is built for: every pair of
 #: HEAD_DIMS x GROUPS, and gemma-7b's (256, 1)
 SUPPORTED = frozenset((d, g) for d in HEAD_DIMS for g in GROUPS) | {(256, 1)}
-MIN_SPLIT_ROWS = 16  # fewest cache positions worth a block of their own
+MAX_SPLIT = 8  # blocks of a cluster, the portable maximum
+#: bytes per us that one block streams through its ring, that the whole card
+#: streams, and the time a cluster's merge adds (us): fitted on an H100 to the
+#: sweep of splits that chip_smoke.py prints (bf16, Dh 64 and 256)
+BLOCK_BYTES_PER_US = 27.5e3
+CARD_BYTES_PER_US = 2.9e6
+CLUSTER_US = 1.8
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.decode_attn
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -45,12 +64,35 @@ build = LIBRARY.build
 load = LIBRARY.load
 
 
-def default_splits(device: torch.device, batch: int, kv_heads: int, length: int) -> int:
-    """Pieces each row's cache is cut into: enough blocks for two per SM,
-    but no piece shorter than ``MIN_SPLIT_ROWS`` of the cache length."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-2 * n_sm // (batch * kv_heads))
-    return max(1, min(want, -(-length // MIN_SPLIT_ROWS)))
+def split_cost(splits: int, batch: int, kv_heads: int, bound: int, row_bytes: int,
+               n_sm: int) -> float:
+    """Modelled time (us, launch aside) of ``splits`` blocks per
+    ``(b, kv head)`` over ``bound`` positions of ``row_bytes`` (K and V):
+    the busiest SM streams the rows of its ``ceil(B * Hkv * S / n_sm)``
+    blocks at one block's rate, or the card all rows at its own, whichever
+    is slower, and a cluster adds its merge."""
+    rows = max(int(bound), 0)
+    busiest = -(-batch * kv_heads * splits // n_sm) * -(-rows // splits) * row_bytes
+    stream = max(busiest / BLOCK_BYTES_PER_US,
+                 batch * kv_heads * rows * row_bytes / CARD_BYTES_PER_US)
+    return stream + (CLUSTER_US if splits > 1 else 0.0)
+
+
+def plan_splits(batch: int, kv_heads: int, bound: int, row_bytes: int, n_sm: int) -> int:
+    """Blocks per ``(b, kv head)`` for at most ``bound`` valid positions:
+    the split in 1..``MAX_SPLIT`` of least :func:`split_cost`, the smaller
+    on a tie."""
+    return min(range(1, MAX_SPLIT + 1),
+               key=lambda s: (split_cost(s, batch, kv_heads, bound, row_bytes, n_sm), s))
+
+
+def split_rows(valid: int, length: int, splits: int, rank: int) -> Tuple[int, int]:
+    """Cache positions ``[start, end)`` that block ``rank`` of a cluster of
+    ``splits`` reads, as the kernel computes them."""
+    valid = min(max(valid, 0), length)
+    per = -(-valid // splits)
+    start = min(rank * per, valid)
+    return start, min(start + per, valid)
 
 
 def decode_attn_cuda(
@@ -58,13 +100,17 @@ def decode_attn_cuda(
     cache_k: torch.Tensor,  # [B, L, Hkv, Dh]
     cache_v: torch.Tensor,
     valid_len: torch.Tensor,  # [B] int32: cache positions to attend to
+    bound: Optional[int] = None,
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
     """The kernel on CUDA tensors -> out [B, H, Dh] in q's dtype.
 
     Checks device, dtype, shape, contiguity and alignment, allocates the
-    output and the workspace of the :func:`default_splits` blocks that
-    share each row's cache, launches on the current stream without
-    synchronising, and raises if the launch is refused."""
+    output, launches on the current stream without synchronising, and
+    raises if the launch is refused.  ``bound`` is an upper bound on
+    ``valid_len`` (the cache length when None) from which
+    :func:`plan_splits` sizes the grid; ``splits`` (1 to 8) overrides it.
+    The result is right for any of them."""
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in (cache_k, cache_v, valid_len)):
         raise ValueError(
@@ -100,16 +146,19 @@ def decode_attn_cuda(
     if any(t.data_ptr() % 16 for t in (q, cache_k, cache_v)):
         raise ValueError("decode_attn_cuda reads 16-byte vectors: q, cache_k and cache_v "
                          "must start at 16-byte aligned addresses")
+    if splits is not None and not 1 <= splits <= MAX_SPLIT:
+        raise ValueError(f"splits must lie in 1..{MAX_SPLIT} (got {splits})")
     out = torch.empty((B, H, Dh), dtype=q.dtype, device=dev)
-    S = default_splits(dev, B, Hkv, L)
-    work = torch.empty(B * Hkv * S * G * (Dh + 2), dtype=torch.float32, device=dev)
+    if splits is None:
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = plan_splits(B, Hkv, L if bound is None else min(bound, L),
+                             2 * Dh * q.element_size(), n_sm)
     lib = load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.decode_attn(
             q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), valid_len.data_ptr(),
-            out.data_ptr(), work.data_ptr(), B, L, Hkv, G, Dh, S,
-            _DTYPE_CODES[q.dtype], stream,
+            out.data_ptr(), B, L, Hkv, G, Dh, splits, _DTYPE_CODES[q.dtype], stream,
         )
     if rc != 0:
         raise RuntimeError(f"decode_attn launch failed: cudaError {rc}")

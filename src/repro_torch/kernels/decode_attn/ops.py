@@ -32,10 +32,11 @@ def gqa_decode_attention(
 
     ``valid_len`` is the kernel's ``[B]`` int32 ``pos + 1`` on the card; a
     caller that runs many layers at one position builds it once and
-    passes it, so no layer makes a tensor of its own.  The plain version
-    reads ``pos`` alone."""
+    passes it, so no layer makes a tensor of its own.  ``pos + 1`` also
+    sizes the kernel's grid (the positions it can have to read).  The
+    plain version reads ``pos`` alone."""
     if q.device.type == "cpu":
         return decode_attention(q, cache_k, cache_v, pos)
     if valid_len is None:
         valid_len = torch.full((q.shape[0],), pos + 1, dtype=torch.int32, device=q.device)
-    return decode_attn_cuda(q[:, 0], cache_k, cache_v, valid_len)[:, None]
+    return decode_attn_cuda(q[:, 0], cache_k, cache_v, valid_len, bound=pos + 1)[:, None]

@@ -7,14 +7,20 @@ runs on a machine that has only torch:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 * the s2d-conv kernel (``csrc/s2d_conv.cu``) against its plain version,
-  in f32 and bf16, with the smoke run's tolerances;
+  in f32 and bf16, with the smoke run's tolerances, at the
+  ``tests/test_kernels.py`` shapes, the 9 GEMM shapes of the main path's
+  variant layers, ragged and unaligned rows, and every split of the
+  contraction (1 to 8 blocks a cluster);
+* both kernels bit-identical over two calls and under CUDA-graph replay
+  (the cluster merges sum in a fixed order);
 * the decode-attention kernel (``csrc/decode_attn.cu``) against its plain
   version, in f32 (``atol 1e-5, rtol 1e-4``: another summation order)
   and bf16 (``2e-2 * max|ref|``: the plain version rounds the softmax
   weights to bf16), at the ``tests/test_kernels.py`` shapes, the serving
-  path's shape, a ragged cache length, from one to 64 blocks per row's
-  cache, per-row valid lengths, and gemma-7b's head shape (Dh = 256,
-  one query head per KV head); serving goes through the kernel;
+  path's shape, a ragged cache length, every split of a row's cache (1 to
+  8 blocks a cluster), per-row valid lengths from 0, and gemma-7b's head
+  shape (Dh = 256, one query head per KV head); serving goes through the
+  kernel;
 * the SSD-scan kernel (``csrc/ssd_scan.cu``) against the oracle
   ``ssd_naive`` (f32, ``tests/test_kernels.py``'s rel < 1e-5) and the
   plain ``ssd_chunked`` (bf16 output: 2e-2 * max|ref|) at the
@@ -31,10 +37,18 @@ torch = pytest.importorskip("torch")
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [  # tests/test_kernels.py, plus a ragged and a main-path one
+SHAPES = [  # tests/test_kernels.py, plus ragged ones and a main-path one
     (2, 8, 8, 16, 32, 2), (1, 16, 16, 64, 64, 2), (2, 12, 12, 36, 72, 3),
     (1, 8, 8, 256, 128, 2), (1, 4, 4, 512, 512, 2), (3, 5, 7, 20, 12, 2),
     (1, 28, 28, 256, 1024, 2),
+    (2, 5, 7, 4, 3, 1),  # Cv = 4, Kv = 3: bf16 rows of 8 bytes
+    (1, 9, 11, 40, 24, 1),  # whole 16-byte rows, ragged in every dimension
+]
+# (M, Cv, Kv) of the 20 pointwise variant layers the multicam_heavy @ 6k_1ws2os
+# plans select (core/variant_exec.pointwise_variants), at B=1; all have g = 2
+MAIN_GEMMS = [
+    (3136, 64, 256), (3136, 128, 256), (3136, 256, 64), (3136, 256, 128),
+    (784, 128, 512), (784, 256, 512), (784, 512, 128), (784, 96, 384), (784, 384, 96),
 ]
 
 
@@ -66,6 +80,81 @@ def test_kernel_matches_plain_version(card, B, H, W, C, K, g, dtype, tol):
     assert err <= tol * ref.float().abs().max().item()
 
 
+def _s2d_inputs(card, M, Cv, Kv, dtype, seed):
+    """x [1, H, W, 4 Cv] and w [Cv, Kv] for g = 2, H * W * 4 = M."""
+    side = int(round((M // 4) ** 0.5))
+    assert side * side * 4 == M
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((1, side, side, 4 * Cv), dtype=np.float32)
+    w = rng.standard_normal((Cv, Kv), dtype=np.float32) / np.sqrt(Cv, dtype=np.float32)
+    return torch.from_numpy(x).to(card, dtype), torch.from_numpy(w).to(card, dtype)
+
+
+@pytest.mark.parametrize("M,Cv,Kv", MAIN_GEMMS)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_kernel_at_the_main_path_shapes(card, M, Cv, Kv, dtype, tol):
+    from repro_torch.kernels.s2d_conv.kernel import s2d_conv_cuda
+    from repro_torch.kernels.s2d_conv.ref import s2d_conv_ref
+
+    x, w = _s2d_inputs(card, M, Cv, Kv, dtype, M + Cv + Kv)
+    got = s2d_conv_cuda(x, w, 2)
+    ref = s2d_conv_ref(x, w, 2)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape and got.dtype == dtype
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("split", range(1, 9))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_kernel_takes_every_split_of_the_contraction(card, split, dtype, tol):
+    """A cluster of 1 to 8 blocks per tile, each over its run of slabs
+    (some runs empty: 784 x 96 has 3 f32 slabs, 2 bf16 ones)."""
+    from repro_torch.kernels.s2d_conv.kernel import s2d_conv_cuda
+    from repro_torch.kernels.s2d_conv.ref import s2d_conv_ref
+
+    for M, Cv, Kv in ((784, 512, 128), (784, 96, 384)):
+        x, w = _s2d_inputs(card, M, Cv, Kv, dtype, split)
+        got = s2d_conv_cuda(x, w, 2, split=split)
+        ref = s2d_conv_ref(x, w, 2)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= tol * ref.float().abs().max().item()
+
+
+def _replayed(fn):
+    """``fn()`` captured in a CUDA graph and replayed three times."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_deterministic_and_replays_in_a_graph(card, dtype):
+    """Two calls bit-identical, and a CUDA-graph replay equal to an eager
+    call, where the blocks of a cluster sum each tile's partials."""
+    from repro_torch.kernels.s2d_conv.kernel import plan_s2d, s2d_conv_cuda
+
+    M, Cv, Kv = 784, 512, 128
+    n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+    assert plan_s2d(M, Cv, Kv, dtype, n_sm).split > 1
+    x, w = _s2d_inputs(card, M, Cv, Kv, dtype, 3)
+    first = s2d_conv_cuda(x, w, 2)
+    second = s2d_conv_cuda(x, w, 2)
+    replayed = _replayed(lambda: s2d_conv_cuda(x, w, 2))
+    assert torch.equal(first, second)
+    assert torch.equal(replayed, first)
+
+
 def test_kernel_wrapper_rejects_what_it_does_not_take(card):
     from repro_torch.kernels.s2d_conv.kernel import s2d_conv_cuda
 
@@ -76,6 +165,8 @@ def test_kernel_wrapper_rejects_what_it_does_not_take(card):
         s2d_conv_cuda(x, torch.zeros((3, 4), device=card), 2)
     with pytest.raises(ValueError, match="contiguous"):
         s2d_conv_cuda(x.transpose(1, 2), torch.zeros((4, 4), device=card), 2)
+    with pytest.raises(ValueError, match="split"):
+        s2d_conv_cuda(x, torch.zeros((4, 4), device=card), 2, split=9)
 
 
 def test_argmin_takes_the_first_minimum_on_the_card(card):
@@ -109,7 +200,7 @@ DECODE_SHAPES = [  # (B, L, H, Hkv, Dh, pos): tests/test_kernels.py, serving, ra
     (1, 64, 8, 1, 128, 10), (8, 2048, 32, 8, 64, 255), (8, 2048, 32, 8, 64, 2047),
     (2, 77, 16, 2, 32, 76), (2, 100, 8, 8, 128, 0),
     (33, 40, 16, 8, 32, 39),  # B * Hkv fills the card: one block per row
-    (1, 1024, 8, 1, 128, 1000),  # 64 blocks share one row's cache
+    (1, 1024, 8, 1, 128, 1000),  # a cluster of 8 blocks shares one row's cache
     (2, 300, 16, 16, 256, 299), (8, 2048, 16, 16, 256, 2047),  # gemma-7b's heads
 ]
 
@@ -148,26 +239,49 @@ def test_decode_kernel_matches_plain_version(card, B, L, H, Hkv, Dh, pos, dtype)
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_reads_each_rows_own_valid_length(card, dtype):
-    """Per-row ``valid_len`` (the Pallas kernel's ``[B]`` lengths): each row
-    equals the plain version at its own position, and what lies beyond
-    it is never read."""
+    """Per-row ``valid_len`` (the Pallas kernel's ``[B]`` lengths), from 0:
+    each row equals the plain version at its own position, a row with no
+    valid position gives 0, and what lies beyond a row's length is never
+    read, for every split of the cache."""
     from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
     from repro_torch.kernels.decode_attn.ref import decode_attention
 
-    B, L, H, Hkv, Dh = 4, 300, 16, 4, 64
+    B, L, H, Hkv, Dh = 5, 300, 16, 4, 64
     q, k, v = _decode_inputs(card, B, L, H, Hkv, Dh, dtype, 1)
-    pos = [0, 17, 255, 299]
-    valid = torch.tensor([p + 1 for p in pos], dtype=torch.int32, device=card)
-    got = decode_attn_cuda(q[:, 0], k, v, valid)
+    lengths = [0, 1, 18, 256, 300]
+    valid = torch.tensor(lengths, dtype=torch.int32, device=card)
     k2, v2 = k.clone(), v.clone()
-    for b, p in enumerate(pos):
-        k2[b, p + 1:] = float("nan")
-        v2[b, p + 1:] = float("nan")
-    got2 = decode_attn_cuda(q[:, 0], k2, v2, valid)
-    torch.cuda.synchronize()
-    assert torch.equal(got, got2)
-    for b, p in enumerate(pos):
-        _close(got[b:b + 1, None], decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], p), dtype)
+    for b, n in enumerate(lengths):
+        k2[b, n:] = float("nan")
+        v2[b, n:] = float("nan")
+    for splits in range(1, 9):
+        got = decode_attn_cuda(q[:, 0], k, v, valid, splits=splits)
+        got2 = decode_attn_cuda(q[:, 0], k2, v2, valid, splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, got2)
+        assert not bool(got[0].any())
+        for b, n in enumerate(lengths[1:], 1):
+            want = decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], n - 1)
+            _close(got[b:b + 1, None], want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_is_deterministic_and_replays_in_a_graph(card, dtype):
+    """Two calls bit-identical, and a CUDA-graph replay equal to an eager
+    call, at the serving shape where a cluster of blocks merges each
+    (b, kv head)'s cache."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda, plan_splits
+
+    B, L, H, Hkv, Dh = 8, 2048, 32, 8, 64
+    n_sm = torch.cuda.get_device_properties(card).multi_processor_count
+    assert plan_splits(B, Hkv, L, 2 * Dh * torch.finfo(dtype).bits // 8, n_sm) > 1
+    q, k, v = _decode_inputs(card, B, L, H, Hkv, Dh, dtype, 4)
+    valid = torch.full((B,), 1500, dtype=torch.int32, device=card)
+    first = decode_attn_cuda(q[:, 0], k, v, valid)
+    second = decode_attn_cuda(q[:, 0], k, v, valid)
+    replayed = _replayed(lambda: decode_attn_cuda(q[:, 0], k, v, valid))
+    assert torch.equal(first, second)
+    assert torch.equal(replayed, first)
 
 
 def test_decode_kernel_wrapper_rejects_what_it_does_not_take(card):
@@ -190,6 +304,8 @@ def test_decode_kernel_wrapper_rejects_what_it_does_not_take(card):
     strided = torch.zeros((1, 2, 16, 64), device=card).transpose(1, 2)  # [1, 16, 2, 64]
     with pytest.raises(ValueError, match="contiguous"):
         decode_attn_cuda(q, strided, strided, valid)
+    with pytest.raises(ValueError, match="splits"):
+        decode_attn_cuda(q, k, k, valid, splits=0)
 
 
 def test_serve_on_the_card_goes_through_the_kernel(card):
