@@ -46,8 +46,13 @@ Phases, each on lines of its own; any failure exits non-zero:
    3.35 TB/s, operations / peak; for s2d-conv in f32 the faster of the
    CUDA cores and split TF32, three products at the TF32 peak; for the
    SSD scan the products it needs: the causal half, and C Bᵀ once per
-   batch row and chunk, not per head), and the kernel wrapper's cost per
-   call when launched back to back from Python.  At the serving shapes
+   batch row and chunk, not per head, its f32 products at the faster of
+   the CUDA cores and split TF32, beside the CUDA-core-only figure of
+   earlier runs), and the kernel wrapper's cost per call when launched
+   back to back from Python.  At the prefill shape, the device kernels of
+   an SSD call (``torch.profiler`` over four calls: must be 2, C Bᵀ and
+   the scan, each recorded in three or four of the calls, as the profiler
+   may drop a window's first event) and each one's time.  At the serving shapes
    the decode kernel and SDPA are also timed cold (calls taking turns
    over copies of the cache twice the 50 MB L2), and the kernels line
    takes those; at the serving shape, the device kernels of one decode
@@ -568,20 +573,47 @@ def main():
             # the products the function needs, causal half only (Q(Q+1)/2 pairs j <= i):
             # C B^T once per (b, chunk), as B and C are shared by the heads, at the
             # inputs' type (bf16 products are exact in f32); scores xdt, C S and the
-            # state update per (b, h, chunk) in f32 (xdt and the decays are f32)
+            # state update per (b, h, chunk) in f32 (xdt and the decays are f32).  An
+            # f32-accurate product runs at the faster of the CUDA cores and split TF32
+            # (three products at the TF32 peak; two for C S where C is bf16, exact in
+            # TF32); the CUDA-core-only figure is the bound that earlier versions of
+            # this script printed.
             n_chunks = Bt * (L // Q)
             ops_cb = n_chunks * Q * (Q + 1) * N
-            ops_f32 = n_chunks * H * (Q * (Q + 1) * Pd + 4 * Q * N * Pd)
+            ops_cs = n_chunks * H * 2 * Q * N * Pd
+            ops_f32 = n_chunks * H * (Q * (Q + 1) * Pd + 2 * Q * N * Pd) + ops_cs
+            f32_s = min(1 / PEAK["float32"], 3 / PEAK["tf32"])
+            cs_s = min(1 / PEAK["float32"], 2 / PEAK["tf32"]) if dn == "bfloat16" else f32_s
             row["t_bytes_ms"] = nbytes / HBM_BPS * 1e3
-            row["t_ops_ms"] = (ops_cb / PEAK[dn] + ops_f32 / PEAK["float32"]) * 1e3
+            row["t_ops_ms"] = (ops_cb * (1 / PEAK[dn] if dn == "bfloat16" else f32_s)
+                               + (ops_f32 - ops_cs) * f32_s + ops_cs * cs_s) * 1e3
             row["bound_ms"], row["bound_by"] = bound(row["t_bytes_ms"], row["t_ops_ms"])
+            row["cuda_core_bound_ms"] = max(
+                row["t_bytes_ms"], (ops_cb / PEAK[dn] + ops_f32 / PEAK["float32"]) * 1e3)
             row["main_path"] = prefill_shape
             ssd_rows.append(row)
             say("[kernel] ssd_scan {shape} {dtype} max_abs_err={max_abs_err:.3e} tol={tol:.3e} "
                 "kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms=None "
-                "bound_ms={bound_ms:.5f} ({bound_by}) call_ms={call_ms:.5f} ok={ok}".format(**row))
+                "bound_ms={bound_ms:.5f} ({bound_by}) cuda_core_bound_ms={cuda_core_bound_ms:.5f} "
+                "call_ms={call_ms:.5f} ok={ok}".format(**row))
             if not ok:
                 fail(f"ssd_scan {row['shape']} {dn}: max|d| {err} > tol {tol}")
+            if prefill_shape:
+                # the device kernels of a call (C B^T, then the scan), over four calls:
+                # the profiler may drop a window's first events, so each kernel must be
+                # recorded in three or four of them, and is timed by its mean
+                calls = 4
+                dev = device_activity(torch, lambda: [
+                    ssd_kernel.ssd_scan_cuda(x, la, B, C, dt, Q) for _ in range(calls)])
+                row["device_kernels_per_call"] = len(dev)
+                row["device_launches_by_kernel"] = {k: n for k, (n, _) in dev.items()}
+                row["device_ms_by_kernel"] = {k: ms / n for k, (n, ms) in dev.items()}
+                say(f"[plan] ssd_scan {row['shape']} {dn}: device kernels per call "
+                    f"{row['device_kernels_per_call']}: " + "; ".join(
+                        f"{k[:70]} {ms:.5f} ms ({dev[k][0]} of {calls} calls recorded)"
+                        for k, ms in row["device_ms_by_kernel"].items()))
+                if len(dev) != 2 or any(not calls - 1 <= n <= calls for n, _ in dev.values()):
+                    fail(f"{calls} ssd_scan calls ran device kernels {dev}, not 2 a call")
         del x32, la, B32, C32, dt, x, B, C, got, ref
     say(f"[kernel] {len(ssd_rows)} ssd_scan comparisons within tolerance; "
         f"launches while comparing = {ssd_kernel.ssd_scan_cuda.launches}")

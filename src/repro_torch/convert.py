@@ -5,7 +5,9 @@ The JAX package keeps layer-variant weights as ``w [C/g^2, K/g^2]``
 R x S variant behind im2col).  Its LM parameter trees keep every linear
 as ``{"w": [d_in, d_out]}`` too, but stack the blocks: each leaf under
 ``blocks`` has a leading ``n_layers`` axis (``jax.vmap`` of the block
-init).  The Mamba2 tree adds ``conv_w [W, conv_ch]`` and f32 vectors
+init), and the hybrid and MoE trees stack some blocks twice, by group
+and by position in the group (:data:`STACKED`).  The Mamba2 tree adds
+``conv_w [W, conv_ch]`` and f32 vectors
 (``A_log``, ``D``, ``dt_bias``, ``conv_b``) that keep their dtype.  The
 port keeps the same layouts at its public functions, so a test hands
 both packages the very same numbers: it draws them with numpy, gives the
@@ -25,8 +27,11 @@ from repro_torch.device import resolve_device
 #: leaf name -> rank of its JAX layout (checked on conversion); ``conv_w`` is
 #: the Mamba2 block's depthwise conv weight ``[W, conv_ch]``
 LAYOUT_RANKS = {"w": 2, "w_full": 4, "conv_w": 2}
-#: subtrees whose leaves carry one leading stacked-layer axis
-STACKED = ("blocks",)
+#: subtree -> the leading stacked-layer axes its leaves carry: one ``jax.vmap``
+#: of the block init (``[n_layers, ...]``), or two nested ones (``[groups,
+#: per_group, ...]``: zamba2's Mamba blocks, llama4's dense blocks)
+STACKED = {"blocks": 1, "moe_blocks": 1, "enc_blocks": 1, "dec_blocks": 1,
+           "mamba_blocks": 2, "dense_blocks": 2}
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -48,10 +53,11 @@ def params_from_numpy(
     """Convert a dict/list/tuple tree of numpy arrays into tensors on
     ``device`` (``cuda`` when None), keeping every array's layout.
 
-    Leaves named in :data:`LAYOUT_RANKS` must have that rank, plus one
-    for each enclosing :data:`STACKED` subtree (``blocks/attn/wq/w`` is
-    ``[n_layers, d_in, d_out]``); a mismatch raises ``ValueError``
-    naming the leaf's path.  ``expect`` maps a leaf's path (``"a/b/w"``)
+    Leaves named in :data:`LAYOUT_RANKS` must have that rank, plus the
+    stacked axes of each enclosing :data:`STACKED` subtree
+    (``blocks/attn/wq/w`` is ``[n_layers, d_in, d_out]``,
+    ``mamba_blocks/conv_w`` is ``[groups, per_group, W, conv_ch]``); a
+    mismatch raises ``ValueError`` naming the leaf's path.  ``expect`` maps a leaf's path (``"a/b/w"``)
     or its bare name (``"w"``) to the exact shape it must have; the path
     wins where both are given."""
     dev = resolve_device(device)
@@ -68,7 +74,7 @@ def params_from_numpy(
             raise TypeError(f"leaf {where!r} is {type(node).__name__}, not a numpy array")
         want = LAYOUT_RANKS.get(name)
         if want is not None:
-            want += sum(part in STACKED for part in path[:-1])
+            want += sum(STACKED.get(part, 0) for part in path[:-1])
             if np.ndim(node) != want:
                 raise ValueError(
                     f"leaf {where!r} has shape {np.shape(node)}; its JAX layout "

@@ -1,17 +1,20 @@
 """Binding of the hand-written Hopper kernel ``csrc/ssd_scan.cu``.
 
 The kernel replaces the JAX package's Pallas TPU kernel
-``kernels/ssd_scan/kernel.py::_ssd_kernel``: the Mamba2 SSD chunked scan,
-one block per (head, batch row) walking its chunks in order with the
-state in shared memory (see the note at the top of the CUDA source).
+``kernels/ssd_scan/kernel.py::_ssd_kernel``: the Mamba2 SSD chunked scan.
+A call makes two launches (see the note at the top of the CUDA source):
+``ssd_scan_cb_kernel`` computes C Bᵀ once per (batch row, chunk) into an
+f32 workspace ``[Bt, L/Q, Q, Q]`` (:func:`workspace_shape`), which the
+wrapper allocates; ``ssd_scan_kernel``, one block per (head, batch row),
+walks the chunks in order with the state in shared memory and reads it.
 
 The source is compiled with ``nvcc`` at first use into a shared library
 with a plain C interface and loaded with ctypes (:mod:`..nvcc`).
 Nothing is built or imported from CUDA when this module is imported.
 
-:func:`ssd_scan_cuda` counts its launches in ``ssd_scan_cuda.launches``
-(a plain integer, added to only where the kernel is launched), so a run
-can show that its main path went through the kernel.
+:func:`ssd_scan_cuda` counts its calls in ``ssd_scan_cuda.launches`` (a
+plain integer, added to once a call, where the two kernels are launched),
+so a run can show that its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -25,12 +28,12 @@ from repro_torch.kernels.nvcc import CudaLibrary
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 32, 64, 128)  # P
 SMEM_MAX = 232448  # bytes of shared memory one block may use on Hopper
-_TILE = 64  # rows of the kernel's C, B and score tiles
+_TILE = 64  # rows of the kernel's C, B and G tiles
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.ssd_scan
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -39,11 +42,38 @@ build = LIBRARY.build
 load = LIBRARY.load
 
 
-def smem_bytes(P: int, N: int, Q: int) -> int:
-    """Shared memory of one block: the state [N, P], xdt [Q, P], the
-    chunk's cumsum and decay weights [Q], a C and a B tile [64, N+1] and
-    the score tile [64, 65], all f32 (``smem_bytes`` in the source)."""
-    return 4 * (N * P + Q * P + 2 * _TILE * (N + 1) + _TILE * (_TILE + 1) + 2 * Q)
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _layout_bytes(P: int, N: int, Q: int, itemsize: int, stages: int) -> int:
+    nk, qp = _round_up(N, 16), _round_up(Q, _TILE)
+    xs = P + 16 if P % 32 == 8 else P + 8
+    f32 = nk * xs + qp * xs + stages * _TILE * (_TILE + 4) + 2 * qp
+    return 4 * f32 + stages * _TILE * (nk + 8) * itemsize
+
+
+def ring_stages(P: int, N: int, Q: int, itemsize: int = 4) -> int:
+    """Buffers of each of the block's two copy rings: 2 where they fit in
+    shared memory, else 1 (the copies then no longer overlap the products)."""
+    return 2 if _layout_bytes(P, N, Q, itemsize, 2) <= SMEM_MAX else 1
+
+
+def smem_bytes(P: int, N: int, Q: int, itemsize: int = 4) -> int:
+    """Shared memory of one ``ssd_scan_kernel`` block (``scan_smem_bytes``
+    in the source), for x, B and C of ``itemsize`` bytes: in f32 the state
+    [NK, XS], xdt [QP, XS], :func:`ring_stages` G tiles [64, 68] and the
+    chunk's cumsum and decay weights [QP]; as many C / B tiles [64, NK + 8]
+    in x's dtype.  NK is N rounded up to 16, QP is Q rounded up to 64, and
+    XS is the padded row of P (P + 8, or P + 16 at P = 8)."""
+    return _layout_bytes(P, N, Q, itemsize, ring_stages(P, N, Q, itemsize))
+
+
+def workspace_shape(Bt: int, L: int, Q: int) -> tuple:
+    """Shape of the f32 workspace that holds C Bᵀ of every (batch row,
+    chunk): ``[Bt, L // Q, Q, Q]`` (only its causal 64 x 64 tiles are
+    written and read)."""
+    return (Bt, L // Q, Q, Q)
 
 
 def ssd_scan_cuda(
@@ -59,8 +89,9 @@ def ssd_scan_cuda(
     ``x``, ``B`` and ``C`` are float32 or bfloat16, of one dtype;
     ``log_a`` and ``dt`` are cast to float32 (the Pallas kernel's first
     step).  Checks device, dtypes, shapes, contiguity and ``L % Q == 0``
-    (``Q = min(chunk, L)``), allocates the output, launches on the current
-    stream without synchronising, and raises if the launch is refused."""
+    (``Q = min(chunk, L)``), allocates the output and the C Bᵀ workspace,
+    launches both kernels on the current stream without synchronising, and
+    raises if a launch is refused."""
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in (log_a, B, C, dt)):
         raise ValueError(
@@ -91,9 +122,10 @@ def ssd_scan_cuda(
     Q = min(chunk, L)
     if Q <= 0 or L % Q:
         raise ValueError(f"sequence length {L} is not a multiple of the chunk {Q}")
-    if smem_bytes(P, N, Q) > SMEM_MAX:
+    smem = smem_bytes(P, N, Q, x.element_size())
+    if smem > SMEM_MAX:
         raise ValueError(
-            f"P={P}, N={N}, Q={Q} needs {smem_bytes(P, N, Q)} bytes of shared memory per "
+            f"P={P}, N={N}, Q={Q} in {x.dtype} needs {smem} bytes of shared memory per "
             f"block, more than the {SMEM_MAX} a block may use"
         )
     if not all(t.is_contiguous() for t in (x, log_a, B, C, dt)):
@@ -105,10 +137,12 @@ def ssd_scan_cuda(
         return out
     lib = load()
     with torch.cuda.device(dev):
+        # from the caching allocator (under CUDA-graph capture, the graph's own pool)
+        cb = torch.empty(workspace_shape(Bt, L, Q), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ssd_scan(
             x.data_ptr(), log_a.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(),
-            out.data_ptr(), Bt, L, H, P, N, Q, _DTYPE_CODES[x.dtype], stream,
+            cb.data_ptr(), out.data_ptr(), Bt, L, H, P, N, Q, _DTYPE_CODES[x.dtype], stream,
         )
     if rc != 0:
         raise RuntimeError(f"ssd_scan launch failed: cudaError {rc}")

@@ -24,9 +24,11 @@ runs on a machine that has only torch:
 * the SSD-scan kernel (``csrc/ssd_scan.cu``) against the oracle
   ``ssd_naive`` (f32, ``tests/test_kernels.py``'s rel < 1e-5) and the
   plain ``ssd_chunked`` (bf16 output: 2e-2 * max|ref|) at the
-  ``tests/test_kernels.py`` shapes, the model's dtypes (x, B, C bf16;
-  log_a, dt f32), the wrapper's rejections, and a reduced mamba2 prefill
-  through the kernel, one launch per layer;
+  ``tests/test_kernels.py`` shapes, one chunk (L = Q), ragged rows, shapes
+  with one buffer a copy ring, unaligned inputs and the prefill's shape (f32 1e-4), the model's dtypes (x, B, C bf16;
+  log_a, dt f32), bit-identical repeats and CUDA-graph replay (the C Bᵀ
+  workspace allocated under capture), the wrapper's rejections, and a
+  reduced mamba2 prefill through the kernel, one call per layer;
 * ``simulate_batch`` on the card against the host SoA engine.
 """
 
@@ -324,6 +326,9 @@ SSD_SHAPES = [  # (Bt, L, H, P, N, Q): tests/test_kernels.py, the reduced model,
     (2, 64, 4, 8, 16, 16), (1, 128, 2, 64, 128, 32), (2, 32, 8, 16, 8, 32),
     (1, 64, 1, 128, 64, 64), (1, 64, 2, 16, 8, 16), (2, 32, 8, 32, 16, 4),
     (2, 512, 4, 64, 128, 256), (1, 96, 3, 32, 16, 256),
+    (2, 256, 4, 64, 128, 256),  # L = Q: one chunk of the prefill's widths
+    (1, 30, 2, 16, 12, 6),  # rows of B, C and G that are not whole 16-byte chunks
+    (2, 512, 2, 64, 224, 256), (1, 384, 3, 128, 128, 192),  # one buffer a copy ring
 ]
 
 
@@ -363,6 +368,60 @@ def test_ssd_kernel_matches_plain_version(card, Bt, L, H, Pd, N, Q, dtype):
         assert _rel(got, plain) < 1e-5
     else:
         assert _rel(got, plain) < 2e-2
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_ssd_kernel_at_the_prefill_shape(card, dtype, tol):
+    """mamba2-1.3b's prefill (Bt=8, L=4096, H=64, P=64, N=128, Q=256)
+    against the plain version, with chip_smoke.py's tolerances (f32 1e-4:
+    the cumsum of 256 log-decays taken in another order)."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    x, la, B, C, dt = _ssd_inputs(card, 8, 4096, 64, 64, 128, 5)
+    x, B, C = x.to(dtype), B.to(dtype), C.to(dtype)
+    got = ssd_scan_cuda(x, la, B, C, dt, 256)
+    plain = ssd_chunked(x, la, B, C, dt, 256)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rel(got, plain) < tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_takes_inputs_at_unaligned_addresses(card, dtype):
+    """x, B and C one element into their buffers (contiguous, but not on a
+    16-byte boundary): the kernel loads them element by element."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=card)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    x, la, B, C, dt = _ssd_inputs(card, 2, 128, 4, 32, 16, 11)
+    x, B, C = (unaligned(t) for t in (x, B, C))
+    assert x.data_ptr() % 16 and B.data_ptr() % 16 and C.data_ptr() % 16
+    got = ssd_scan_cuda(x, la, B, C, dt, 64)
+    plain = ssd_chunked(x, la, B, C, dt, 64)
+    torch.cuda.synchronize()
+    assert _rel(got, plain) < (1e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_is_deterministic_and_replays_in_a_graph(card, dtype):
+    """Two calls bit-identical, and a CUDA-graph replay equal to an eager
+    call: the C Bᵀ workspace is allocated inside the captured call."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+    x, la, B, C, dt = _ssd_inputs(card, 2, 512, 4, 64, 128, 9)
+    x, B, C = x.to(dtype), B.to(dtype), C.to(dtype)
+    first = ssd_scan_cuda(x, la, B, C, dt, 256)
+    second = ssd_scan_cuda(x, la, B, C, dt, 256)
+    replayed = _replayed(lambda: ssd_scan_cuda(x, la, B, C, dt, 256))
+    assert torch.equal(first, second)
+    assert torch.equal(replayed, first)
 
 
 def test_ssd_kernel_takes_all_five_inputs_in_bf16(card):

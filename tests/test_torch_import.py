@@ -229,3 +229,33 @@ def test_params_from_numpy_keeps_bf16_bits():
     t = params_from_numpy({"blocks": {"w": a}}, device="cpu")["blocks"]["w"]
     assert t.dtype == torch.bfloat16
     assert np.array_equal(t.view(torch.int16).numpy().view(np.uint16), a.view(np.uint16))
+
+
+ARCHS = ("llama4-maverick-400b-a17b", "qwen3-moe-235b-a22b", "mamba2-1.3b", "codeqwen1.5-7b",
+         "gemma-7b", "mistral-nemo-12b", "llama3.2-1b", "zamba2-2.7b", "whisper-base",
+         "llava-next-34b")  # repro.configs.registry.ARCHS
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_params_from_numpy_takes_every_reduced_param_tree(arch):
+    """The JAX package's reduced param tree of every arch (its shapes from
+    ``jax.eval_shape`` of ``init``, filled with zeros) converts, each leaf
+    keeping its shape: the stacked axes of ``mamba_blocks`` and
+    ``dense_blocks`` (two each) and of the other block stacks (one)."""
+    import numpy as np
+
+    jax = pytest.importorskip("jax")
+    from repro.configs.registry import ARCHS as registry_archs, get_config
+    from repro.models.model_api import build_model
+    from repro_torch.convert import params_from_numpy
+
+    assert ARCHS == registry_archs
+    model = build_model(get_config(arch).reduced())
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0))
+    tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    got = params_from_numpy(tree, device="cpu")
+    want = jax.tree_util.tree_leaves_with_path(tree)
+    have = dict(jax.tree_util.tree_leaves_with_path(got, is_leaf=torch.is_tensor))
+    assert len(have) == len(want)
+    for path, leaf in want:
+        assert tuple(have[path].shape) == leaf.shape, jax.tree_util.keystr(path)

@@ -128,7 +128,9 @@ def test_kernel_wrapper_never_takes_cpu_tensors():
 
 def test_kernel_shared_memory_fits_the_main_path():
     """mamba2-1.3b's prefill shapes (P=64, N=128, Q=256) fit one block's
-    shared memory; the largest test shape too."""
-    assert smem_bytes(64, 128, 256) == 183040 <= SMEM_MAX
-    assert smem_bytes(128, 64, 64) <= SMEM_MAX
-    assert smem_bytes(128, 128, 256) > SMEM_MAX
+    shared memory in f32 and in bf16 (the C / B tiles are kept in x's
+    dtype); the largest test shape too; P=128 with N=128 and Q=256 does not."""
+    assert smem_bytes(64, 128, 256, 4) == 217088 <= SMEM_MAX
+    assert smem_bytes(64, 128, 256, 2) == 182272 <= SMEM_MAX
+    assert smem_bytes(128, 64, 64, 4) <= SMEM_MAX
+    assert smem_bytes(128, 128, 256, 2) > SMEM_MAX
