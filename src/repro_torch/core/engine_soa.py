@@ -74,11 +74,18 @@ queue-depth threshold the engine switches representation and kernel:
   round-local tau of *all* accelerators through ``s*``, so heap keys
   go stale on every assignment and exact revalidation costs more than
   the vectorized rescan.)
-* the device round (``round_kernel="jax"`` in the JAX package) has no
-  torch counterpart yet: ``round_kernel="jax"`` raises
-  :class:`DeviceRoundUnavailableError`, and ``"auto"`` resolves to
-  ``"python"`` without probing anything, so this module imports no
-  device code at all.
+* rounds deeper than a calibrated crossover can ride the **device
+  round** (``scheduler_torch.terastal_round``, the port of the JAX
+  package's jitted round, whose name ``round_kernel="jax"`` keeps):
+  the block mirrors stage into ``pack_arrays``'s persistent pow2
+  bucket buffers (one host->device copy per field, onto the
+  ``device`` given to :func:`simulate_soa`, the card when None) and
+  the outputs come back in one device sync, in the exact reference
+  emission order via ``assign_seq``.  Kernel choice:
+  ``REPRO_ROUND_KERNEL`` in {python, jax, auto}; "auto" uses the
+  device round only above :func:`round_crossover` (env
+  ``REPRO_ROUND_CROSSOVER`` or :func:`set_round_crossover`; +inf when
+  neither is set, and then auto == python).
 
 Bit-parity is enforced by differential tests (``tests/test_engine_soa.py``):
 every ``SimResult`` field — per-model counters, ``retained_sum`` floats,
@@ -86,6 +93,12 @@ busy-time arrays — must equal the reference engine's exactly, across
 schedulers x arrival processes x budget policies, and the deep kernels
 are additionally pinned against the scalar ones at every pow2 bucket
 boundary (``tests/test_round_kernels.py``).
+
+Torch port: a copy of the JAX package's ``core/engine_soa.py`` whose
+device round is ``scheduler_torch.terastal_round`` (the seam keeps the
+reference's names: :func:`round_crossover`, :func:`set_round_crossover`,
+``_jax_mod``, ``_jax_round`` and the ``jax_min`` / ``jax_on`` dispatch)
+and whose :func:`simulate_soa` takes the ``device`` that round runs on.
 """
 
 from __future__ import annotations
@@ -142,16 +155,12 @@ _ONE = (0,)
 # ------------------------------------------------- round-kernel dispatch ----
 
 #: Terastal round-kernel choices: "python" (scalar/vectorized kernels,
-#: depth-dispatched), "jax" (the device round: not ported yet, raises
-#: :class:`DeviceRoundUnavailableError`), "auto" (== "python").
-#: Per-trial override: ``simulate(round_kernel=...)``; process-wide:
-#: ``REPRO_ROUND_KERNEL``.
+#: depth-dispatched), "jax" (force the device round,
+#: ``scheduler_torch.terastal_round``, for every block round), "auto"
+#: (python below :func:`round_crossover`, the device round above).
+#: Per-trial override: ``simulate(round_kernel=...)`` /
+#: ``TrialSpec.round_kernel``; process-wide: ``REPRO_ROUND_KERNEL``.
 ROUND_KERNELS = ("auto", "python", "jax")
-
-
-class DeviceRoundUnavailableError(ValueError):
-    """``round_kernel="jax"``: the torch Terastal round is not ported yet."""
-
 
 #: ready-queue depth at which a Terastal/DREAM round switches from the
 #: scalar kernel to the vectorized one (and the block activates its deep
@@ -163,10 +172,64 @@ class DeviceRoundUnavailableError(ValueError):
 #: overrides (tests use it to force either path at any depth).
 VEC_MIN_NJ = 24
 
+_round_crossover: Optional[float] = None
+
+#: memoized (raw env string, parsed value) for :func:`round_crossover` —
+#: campaign trials call it once per simulation, and every pool worker
+#: re-resolves it from a fresh process, so the parse is cached on the
+#: raw string (``REPRO_ROUND_CROSSOVER=inf`` in particular hits this
+#: fast path instead of re-parsing per trial).
+_crossover_env: Tuple[Optional[str], float] = (None, _INF)
+
 
 def _vec_min() -> int:
     env = os.environ.get("REPRO_ROUND_VEC_MIN")
     return int(env) if env else VEC_MIN_NJ
+
+
+def round_crossover() -> float:
+    """NJ above which ``REPRO_ROUND_KERNEL=auto`` rides the device round.
+
+    Resolution order: ``REPRO_ROUND_CROSSOVER`` env (a number, or
+    ``inf``), else the value installed by :func:`set_round_crossover`,
+    else +inf: no crossover is installed by default, so "auto" stays on
+    the Python round.
+
+    When the resolved value is INF, ``simulate_soa`` drops the device
+    branch from its per-round dispatch entirely (``jax_on`` below):
+    ``auto`` is then end-to-end identical to ``round_kernel="python"``
+    and never calls the device round (pinned by
+    ``tests/test_torch_round.py``)."""
+    global _crossover_env
+    env = os.environ.get("REPRO_ROUND_CROSSOVER")
+    if env:
+        raw, val = _crossover_env
+        if raw != env:
+            val = float(env)
+            _crossover_env = (env, val)
+        return val
+    if _round_crossover is not None:
+        return _round_crossover
+    return _INF
+
+
+def set_round_crossover(nj: Optional[float]) -> None:
+    """Install a measured python->jax crossover depth (None clears)."""
+    global _round_crossover
+    _round_crossover = None if nj is None else float(nj)
+
+
+_SJ = None  # lazily imported repro_torch.core.scheduler_torch (the device round)
+
+
+def _jax_mod():
+    """Lazy import of the device round's module, ``scheduler_torch``."""
+    global _SJ
+    if _SJ is None:
+        from repro_torch.core import scheduler_torch
+
+        _SJ = scheduler_torch
+    return _SJ
 
 
 def supports_scheduler(scheduler: Scheduler) -> bool:
@@ -849,6 +912,47 @@ def _kern_terastal_vec(B, now, busy, idle_mask, n_idle, mode):
     return out
 
 
+def _jax_round(B, now, busy, idle_mask, n_acc, mode, device=None):
+    """One Terastal round on the device (``REPRO_ROUND_KERNEL=jax`` or
+    NJ past the calibrated crossover), on ``device`` (the card when
+    None): stage the deep mirrors into ``pack_arrays``'s persistent
+    bucket buffers in ascending-rid order (stable argsort ties ==
+    (slack, rid)), run ``terastal_round``, and fetch all three outputs
+    in one device sync.  ``assign_seq`` restores
+    the reference emission order, which fixes how simultaneous finish
+    events tie-break downstream."""
+    SJ = _jax_mod()
+    n = B.n
+    perm = np.argsort(B.rid_arr[:n])
+    tau = np.array([b if b > now else now for b in busy])
+    idle = np.array([bool(idle_mask >> k & 1) for k in range(n_acc)])
+    inp = SJ.pack_arrays(
+        B.vdl_arr[:n][perm],
+        B.vdl_next_arr[:n][perm],
+        B.next_min_arr[:n][perm],
+        B.lat_arr[:, :n].T[perm],  # mirrors are [n_acc, cap]; pack [NJ, NA]
+        B.latv_arr[:, :n].T[perm],
+        tau,
+        idle,
+        device=device,
+    )
+    o = SJ.terastal_round(inp, mode=mode)
+    acc, var, seq = SJ.device_get(o)
+    acc = acc[:n]
+    hit = np.flatnonzero(acc >= 0)
+    if not hit.size:
+        return []
+    emit = hit[np.argsort(seq[:n][hit])]
+    out = []
+    for i in emit:
+        slot = int(perm[i])
+        k = int(acc[i])
+        uv = bool(var[i])
+        row = B.latv[slot] if uv else B.lat[slot]
+        out.append((slot, k, uv, row[k]))
+    return out
+
+
 # --------------------------------------------------------------- engine ----
 
 _ARRIVAL, _FINISH, _TICK, _FAULT = 0, 1, 2, 3  # reference kind codes
@@ -865,17 +969,21 @@ def simulate_soa(
     round_kernel: Optional[str] = None,
     admission: Optional[AdmissionPolicy] = None,
     fault_model: Optional[FaultModel] = None,
+    device=None,
 ) -> SimResult:
     """SoA counterpart of ``_simulate_reference`` (same contract).
 
     ``round_kernel`` selects the Terastal round implementation for deep
     ready queues (see :data:`ROUND_KERNELS`); ``None`` falls back to the
     ``REPRO_ROUND_KERNEL`` environment variable, then ``"auto"``.
+    ``device`` is where the device round runs (the card when None;
+    ``device="cpu"`` runs it on the host).
 
     An active ``fault_model`` forces the scalar kernels (the deep
-    mirrors and the vectorized round cache per-slot latency rows that
-    every capability event would have to rewrite wholesale; the scalar
-    kernels are bit-identical by construction, just not deep).  Fault
+    mirrors, the vectorized round, and the jitted round cache per-slot
+    latency rows that every capability event would have to rewrite
+    wholesale — even an explicit ``round_kernel="jax"`` is downgraded,
+    which is bit-identical by construction, just not deep).  Fault
     events swap the hot plan tables for ``effective_plans`` copies and
     rewrite the live slot caches, so scheduling decisions match the
     reference loop float for float."""
@@ -903,20 +1011,31 @@ def simulate_soa(
     policy_inert = type(policy) in _INERT_POLICIES
 
     # ---- round-kernel dispatch thresholds (deep-queue fast path) --------
-    # "auto" defers to the env var, mirroring how REPRO_SIM_ENGINE
-    # reaches trials; an explicit argument always wins.
+    # "auto" (the TrialSpec default) defers to the env var, mirroring how
+    # REPRO_SIM_ENGINE reaches campaign trials; an explicit python/jax
+    # argument always wins.
     rk = round_kernel
     if rk is None or rk == "auto":
         rk = os.environ.get("REPRO_ROUND_KERNEL") or "auto"
     if rk not in ROUND_KERNELS:
         raise ValueError(f"unknown round kernel {rk!r} (have {ROUND_KERNELS})")
-    if rk == "jax":
-        raise DeviceRoundUnavailableError(
-            "round_kernel='jax': the torch port of the device Terastal round "
-            "comes in a later slice; use round_kernel='python' or 'auto'"
-        )
     vec_min = _vec_min()
-    deep_min = vec_min
+    if terastal:
+        if rk == "jax":
+            jax_min = 1.0  # force the jitted round for every block round
+        elif rk == "python":
+            jax_min = _INF
+        else:
+            jax_min = round_crossover()
+        deep_min = jax_min if jax_min < vec_min else vec_min
+    else:
+        jax_min = _INF
+        deep_min = vec_min
+    # crossover-INF fast path: with no finite crossover the jitted round
+    # can never engage, so "auto" skips the per-round jax probe entirely
+    # and is end-to-end identical to round_kernel="python" (never even
+    # imports scheduler_jax — pinned by tests/test_round_kernels.py)
+    jax_on = jax_min != _INF
 
     # hot per-plan scalar tables (cached on the plans, shared across trials)
     LAT = [p.lat_rows for p in plans]
@@ -970,12 +1089,16 @@ def simulate_soa(
         run_var = [False] * n_acc  # did the running layer apply a variant
         resume = fm.interrupted == "resume"
         deep_min = _INF
+        jax_min = _INF
+        jax_on = False
     if dag_present:
         # simulate() gates non-static budget policies off for DAG plans
         # before either engine runs (faults now compose — the fault
         # handlers below are DAG-aware), so only the kernel dispatch
         # needs forcing here
         deep_min = _INF
+        jax_min = _INF
+        jax_on = False
 
     # per-model stat accumulators (dict built in reference order at the end)
     released = [0] * n_plans
@@ -1669,7 +1792,9 @@ def simulate_soa(
             if n >= deep_min and not B.deep:
                 _activate_deep()
             if terastal:
-                if B.deep and n >= vec_min:
+                if jax_on and n >= jax_min:
+                    out = _jax_round(B, now, busy, idle_mask, n_acc, mode, device)
+                elif B.deep and n >= vec_min:
                     out = _kern_terastal_vec(B, now, busy, idle_mask, n_idle, mode)
                 else:
                     out = _kern_terastal(B, now, busy, idle_mask, n_idle, mode)

@@ -17,6 +17,10 @@ Semantics follow Sec. IV of the paper exactly:
   task with ``prob < 1`` fires each period with that probability — the
   Hand S/P "Prob: 0.5" entry of Table II), with relative deadline
   ``D_m = 1 / fps``.
+
+Torch port: a copy of the JAX package's ``core/simulator.py`` whose
+:func:`simulate` also takes ``device``, the torch device of the
+batched engine and of the SoA engine's device round.
 """
 
 from __future__ import annotations
@@ -869,14 +873,18 @@ def simulate(
 
     ``round_kernel`` selects the SoA engine's Terastal round
     implementation for deep ready queues — ``"python"`` (scalar and
-    vectorized kernels, depth-dispatched) or ``"auto"``/``None`` (the
-    same); ``"jax"``, the device round, is not ported yet and raises
-    ``engine_soa.DeviceRoundUnavailableError``.  ``REPRO_ROUND_KERNEL``
-    overrides ``None``.  Ignored by the reference engine.
+    vectorized kernels, depth-dispatched), ``"jax"`` (force the device
+    round, ``scheduler_torch.terastal_round``), or ``"auto"``/``None``
+    (python below the calibrated crossover; see
+    ``engine_soa.round_crossover``).
+    ``REPRO_ROUND_KERNEL`` overrides ``None``.  All choices are
+    bit-identical (pinned by the differential suites); the knob exists
+    for performance and for the differential tests themselves.  Ignored
+    by the reference engine.
 
-    ``device`` is read only by ``engine="batch"``: the torch device its
-    trial program runs on (``"cuda"`` when None; pass ``device="cpu"``
-    to run it on the host).
+    ``device`` is the torch device of ``engine="batch"``'s trial program
+    and of the SoA engine's device round (``"cuda"`` when None; pass
+    ``device="cpu"`` to run them on the host).
     """
     from repro_torch.core.admission import make_admission_policy
     from repro_torch.core.budget_online import make_budget_policy
@@ -931,7 +939,7 @@ def simulate(
             return engine_soa.simulate_soa(
                 plans, tasks, duration, scheduler, seed, processes, policy,
                 round_kernel=round_kernel, admission=adm,
-                fault_model=fault_model,
+                fault_model=fault_model, device=device,
             )
     return _simulate_reference(
         plans, tasks, duration, scheduler, seed, processes, policy, adm,

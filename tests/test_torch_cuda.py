@@ -29,7 +29,12 @@ runs on a machine that has only torch:
   log_a, dt f32), bit-identical repeats and CUDA-graph replay (the C Bᵀ
   workspace allocated under capture), the wrapper's rejections, and a
   reduced mamba2 prefill through the kernel, one call per layer;
-* ``simulate_batch`` on the card against the host SoA engine.
+* ``simulate_batch`` on the card against the host SoA engine;
+* the device Terastal round (``core/scheduler_torch.terastal_round``, one
+  CUDA graph per bucket) bit-equal to the same ops run eagerly on the card
+  and on the host, for every backfill mode, and the SoA engine with every
+  block round on it fingerprint-equal to the Python round; Algorithm 1
+  (``core/budget_torch``) on the card equal to the host.
 """
 
 import numpy as np
@@ -491,3 +496,80 @@ def _to_cpu(tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     return tree.cpu()
+
+
+# ------------------------------------------------ the paper's device programs ---
+
+
+def _round_state(rng, nj_pad, na):
+    """A padded round state on a dyadic grid (exact ties), as numpy."""
+    nj = int(rng.integers(1, nj_pad + 1))
+    g = lambda lo, hi, size=None: rng.integers(lo, hi, size) / 256.0  # noqa: E731
+    lat = g(1, 17, (nj, na))
+    lat[rng.random((nj, na)) < 0.1] = np.inf
+    lat[np.isinf(lat).all(axis=1), 0] = g(1, 17)
+    state = dict(ready_mask=np.arange(nj_pad) < nj, vdl=np.zeros(nj_pad),
+                 vdl_next=np.zeros(nj_pad), next_min=np.zeros(nj_pad),
+                 lat=np.full((nj_pad, na), np.inf), lat_var=np.full((nj_pad, na), np.inf),
+                 tau=1.0 + np.where(rng.random(na) < 0.5, 0.0, g(0, 17, na)),
+                 idle_mask=rng.random(na) < 0.7)
+    vdl = 1.0 + g(0, 33, nj)
+    state["vdl"][:nj], state["vdl_next"][:nj], state["next_min"][:nj] = (
+        vdl, vdl + g(1, 33, nj), g(0, 9, nj))
+    state["lat"][:nj] = lat
+    state["lat_var"][:nj] = np.where(rng.random((nj, 1)) < 0.5, np.inf,
+                                     np.maximum(lat - g(0, 8, (nj, na)), 1 / 256))
+    return state
+
+
+@pytest.mark.parametrize("mode", ["ef", "paper", "positive"])
+@pytest.mark.parametrize("nj_pad,na", [(4, 1), (16, 3), (64, 3), (128, 4)])
+def test_device_round_graph_equals_eager_and_host(card, mode, nj_pad, na):
+    from repro_torch.core import scheduler_torch as ST
+
+    rng = np.random.default_rng(nj_pad * 10 + na)
+    for _ in range(12):
+        st = _round_state(rng, nj_pad, na)
+        host = ST.terastal_round(ST.RoundInputs(*(torch.from_numpy(st[f]) for f in
+                                                  ST.RoundInputs._fields)), mode=mode)
+        inp = ST.RoundInputs(*(torch.from_numpy(st[f]).to(card) for f in ST.RoundInputs._fields))
+        eager = ST._round(inp, mode)
+        for _ in range(2):  # the capture, then a replay
+            graph = ST.terastal_round(inp, mode=mode)
+            for a, b, c in zip(graph, eager, host):
+                assert a.device.type == "cuda" and a.dtype == c.dtype
+                assert torch.equal(a.cpu(), b.cpu()) and torch.equal(a.cpu(), c)
+    assert ((nj_pad, na), mode, inp.lat.device) in ST._GRAPHS
+
+
+@pytest.mark.parametrize("mode", ["ef", "paper", "positive"])
+def test_soa_device_round_on_the_card_equals_python(card, mode):
+    from repro_torch.core import SATURATION_SCENARIOS, make_scheduler, simulate
+    from repro_torch.core import scheduler_torch as ST
+    from repro_torch.costmodel.maestro import PLATFORMS
+
+    plans, tasks = SATURATION_SCENARIOS["saturation_5x"].plans(PLATFORMS["4k_1ws2os"])
+    sched = make_scheduler(f"terastal(backfill_mode={mode})")
+    before = ST.terastal_round.calls
+    dev = simulate(plans, tasks, 0.3, sched, seed=0, engine="soa", round_kernel="jax")
+    assert ST.terastal_round.calls - before > 3000
+    py = simulate(plans, tasks, 0.3, sched, seed=0, engine="soa", round_kernel="python")
+    assert dev.fingerprint() == py.fingerprint()
+
+
+def test_budgets_on_the_card_equal_the_host(card):
+    from repro_torch.core import SCENARIOS
+    from repro_torch.core.budget import distribute_budgets
+    from repro_torch.core.budget_torch import distribute_budgets_torch, pack_levels
+    from repro_torch.costmodel.maestro import PLATFORMS
+
+    plans, _ = SCENARIOS["multicam_heavy"].plans(PLATFORMS["6k_1ws2os"])
+    for p in plans:
+        packed, R = pack_levels(p.lat)
+        got = distribute_budgets_torch(packed, R, p.deadline)
+        host = distribute_budgets_torch(packed, R, p.deadline, device="cpu")
+        ref = distribute_budgets(p.lat, p.deadline)
+        assert got.budgets.device.type == "cuda"
+        assert bool(got.feasible) == bool(host.feasible) == ref.feasible
+        assert got.rho.cpu().tolist() == host.rho.tolist() == ref.rho.tolist()
+        np.testing.assert_allclose(got.budgets.cpu().numpy(), ref.budgets, rtol=1e-5)

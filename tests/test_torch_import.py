@@ -259,3 +259,48 @@ def test_params_from_numpy_takes_every_reduced_param_tree(arch):
     assert len(have) == len(want)
     for path, leaf in want:
         assert tuple(have[path].shape) == leaf.shape, jax.tree_util.keystr(path)
+
+
+def test_new_modules_run_without_jax_or_repro():
+    """The device programs and the campaign stack, imported and run on the
+    host in a fresh process: Algorithm 1, a Terastal round, a trial with
+    every block round on the device round, a two-trial campaign and the
+    sampler, and still no jax and no JAX package in the module table."""
+    script = "\n".join([
+        "import sys",
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]",
+        "import numpy as np, torch",
+        "import repro_torch.core as P",
+        "from repro_torch.core import budget_torch, campaign, sampling, scheduler_torch",
+        "from repro_torch.costmodel.maestro import PLATFORMS",
+        "packed, R = budget_torch.pack_levels(np.array([[4.0, 1.0], [3.0, 2.0]]))",
+        "out = budget_torch.distribute_budgets_torch(packed, R, 3.5, device='cpu')",
+        "assert out.rho.tolist() == [1, 1], out",
+        "inp = scheduler_torch.pack_arrays(np.array([1.0]), np.array([2.0]), np.array([0.0]),",
+        "    np.array([[0.5, 0.25]]), np.full((1, 2), np.inf), np.zeros(2),",
+        "    np.array([True, True]), device='cpu')",
+        "o = scheduler_torch.terastal_round(inp)",
+        "assert o.assign_acc.tolist()[0] == 1, o",
+        "plans, tasks = P.SATURATION_SCENARIOS['saturation_3x'].plans(PLATFORMS['4k_1ws2os'])",
+        "a = P.simulate(plans, tasks, 0.02, P.make_scheduler('terastal'), seed=0, engine='soa',",
+        "               round_kernel='jax', device='cpu')",
+        "b = P.simulate(plans, tasks, 0.02, P.make_scheduler('terastal'), seed=0, engine='soa',",
+        "               round_kernel='python')",
+        "assert a.fingerprint() == b.fingerprint()",
+        "c = P.Campaign(scenarios=('saturation_3x',), platforms=('4k_1ws2os',),",
+        "               schedulers=('edf', 'terastal'), seeds=(0, 1), duration=0.02)",
+        "res = c.run(parallel=False, device='cpu')",
+        "ad = P.run_adaptive(c, P.SamplerConfig(stopping=False), parallel=False, device='cpu')",
+        "assert len(res.trials) == len(ad.trials) == 4",
+        "bad = sorted(m for m in sys.modules",
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))",
+        "assert not bad, bad",
+        "print('OK')",
+    ])
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env.pop("REPRO_ROUND_KERNEL", None)
+    proc = subprocess.run([sys.executable, "-c", script], env=env, cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "OK"
