@@ -138,6 +138,18 @@ Phases, each on lines of its own; any failure exits non-zero:
    trials/s; and ``run_adaptive`` on the batched engine with a journal,
    equal to the host sampler and resumed from its journal with no trial
    run again;
+   (vi) the fault lane of the batched engine (no kernel of the port; the
+   counts must stay 0), through ``Campaign(engine="batch")``, every
+   ``TrialResult`` field but ``wall_s`` equal to the host ``soa`` grid's:
+   (f) ``multicam_heavy`` @ ``6k_1ws2os``, edf and terastal, seeds 0-7,
+   0.35 s, under ``down``, ``throttle`` and ``intermittent
+   ...retighten=true`` specs, and the same cell fault-free (terastal);
+   (g) Fig. 10's gate cell, ``fault_dropout`` @ ``6k_1ws2os``, terastal
+   and terastal_no_variants, seeds 0-3, cut from 2.0 s to 0.7 s (the
+   outage opens at 0.5 s).  For each seed group: trials/s, engine
+   iterations, us an iteration, evictions, re-timings, ghost pops and
+   variants undone; the ratio of us an iteration faulted / fault-free;
+   device ops an iteration faulted and fault-free (``torch.profiler``);
 5. the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -204,6 +216,35 @@ CAMPAIGN_CELLS = [
     ("b", "saturation_5x", "4k_1ws2os", "poisson", 0.02),
 ]
 ADAPTIVE_CELL = ("a", "multicam_heavy", "6k_1ws2os", "poisson", 0.02)
+# (vi) the fault lane.  (f): PERF.md section 4's cell (a), default arrivals,
+# under three restart-policy fault specs whose windows open inside 0.35 s (the
+# down and throttle windows also close there); (g): Fig. 10's gate cell
+# (benchmarks/fig10_fault_tolerance.py GATE_CELL, GATE_SCHEDULERS), its 2.0 s
+# horizon cut to 0.7 s: the outage [0.5, 1.5) opens inside it and is still open
+# at its end.  Both cut in seeds (from 8 and 4; the phase took 413 s with
+# them, PERF.md section 6): the host-bound engine's time is its iterations,
+# and each group of seeds is one host loop
+FAULT_SPECS = (
+    "down(acc=0,start=0.1,duration=0.2)",
+    "throttle(acc=1,start=0.05,duration=0.3,factor=2.5)",
+    "intermittent(acc=1,rate=10.0,mean_down=0.05,retighten=true)",
+)
+FAULT_CELLS = [
+    dict(label="f", scenario="multicam_heavy", platform="6k_1ws2os", faults=FAULT_SPECS,
+         schedulers=("edf", "terastal"), seeds=4, seeds_from=8, duration=0.35),
+    dict(label="f, fault-free", scenario="multicam_heavy", platform="6k_1ws2os",
+         faults=("none",), schedulers=("terastal",), seeds=4, seeds_from=8, duration=0.35),
+    dict(label="g", scenario="fault_dropout", platform="6k_1ws2os", faults=("scenario",),
+         schedulers=("terastal", "terastal_no_variants"), seeds=2, seeds_from=4,
+         duration=0.7,
+         cut="duration {duration} s (from 2.0 s, benchmarks/fig10_fault_tolerance.py "
+             "DURATION): the outage [0.5, 1.5) opens at 0.5 s and is still open at the end"),
+]
+# device ops an iteration, faulted against fault-free: (f)'s terastal cell
+# under torch.profiler.  The lane is a static branch whose every op runs each
+# iteration whether a fault fires or not, so a short horizon (no window open
+# yet) gives the same count at a fraction of the profiler's cost
+FAULT_PROFILE = dict(spec=FAULT_SPECS[0], seeds=4, duration=0.05)
 # last logits, token-by-token decode vs prefill of a 512-token prompt, f32:
 # tests/test_model_consistency.py's assert_allclose(atol, rtol)
 CROSS_TOL = dict(atol=2e-4, rtol=2e-3)
@@ -621,8 +662,107 @@ def paper_method(torch, report):
         "trial run again".format(**a))
 
 
-def main():
-    import torch
+def fault_lane(torch, report):
+    """Phase (vi): the batched engine's fault lane on the card, through the
+    campaign stack, each cell held against the host soa grid."""
+    from repro_torch.core import SCENARIOS, Campaign, engine_batch, make_scheduler
+    from repro_torch.costmodel.maestro import PLATFORMS
+
+    out = report["faults"] = {"cells": []}
+    real = engine_batch.simulate_batch
+    calls = []
+
+    def recording(plans, tasks, duration, scheduler, seeds, **kwargs):
+        stats = kwargs.setdefault("stats", {})
+        t0 = time.perf_counter()
+        res = real(plans, tasks, duration, scheduler, seeds, **kwargs)
+        calls.append(dict(scheduler=scheduler.name, faults=str(kwargs.get("faults")),
+                          seeds=len(seeds), wall_s=time.perf_counter() - t0, **stats))
+        return res
+
+    for cell in FAULT_CELLS:
+        seeds = tuple(range(cell["seeds"]))
+        say(f"[faults] ({cell['label']}) cut: seeds 0-{seeds[-1]}"
+            f" (from 0-{cell['seeds_from'] - 1})")
+        if "cut" in cell:
+            say(f"[faults] ({cell['label']}) cut: " + cell["cut"].format(**cell))
+        camp = Campaign(scenarios=(cell["scenario"],), platforms=(cell["platform"],),
+                        schedulers=cell["schedulers"], faults=cell["faults"], seeds=seeds,
+                        duration=cell["duration"], engine="batch")
+        calls.clear()
+        engine_batch.simulate_batch = recording
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = camp.run(device="cuda")
+            wall = time.perf_counter() - t0
+        finally:
+            engine_batch.simulate_batch = real
+        t0 = time.perf_counter()
+        host = dataclasses.replace(camp, engine="soa").run(parallel=False)
+        host_wall = time.perf_counter() - t0
+        if [_trial_fields(t) for t in res.trials] != [_trial_fields(t) for t in host.trials]:
+            fail(f"faults ({cell['label']}): batch results != the host soa grid's")
+        if len(calls) != len(cell["schedulers"]) * len(cell["faults"]):
+            fail(f"faults ({cell['label']}): {len(calls)} engine calls for "
+                 f"{len(cell['schedulers']) * len(cell['faults'])} seed groups")
+        line = dict(cell=cell["label"], scenario=cell["scenario"], platform=cell["platform"],
+                    duration=cell["duration"], trials=len(res.trials), wall_s=wall,
+                    trials_per_s=len(res.trials) / wall, host_soa_wall_s=host_wall,
+                    evicted=sum(t.evicted for t in res.trials),
+                    remapped=sum(t.remapped for t in res.trials), groups=[])
+        for c in calls:
+            c.update(trials_per_s=c["seeds"] / c["wall_s"],
+                     us_per_iteration=c["wall_s"] / c["iterations"] * 1e6)
+            line["groups"].append(c)
+            say("[faults] ({cell}) {scheduler} faults={faults}: {seeds} seeds in {wall_s:.3f} s = "
+                "{trials_per_s:.3f} trials/s; {iterations} iterations (bound {max_it}), "
+                "{us_per_iteration:.1f} us an iteration; evictions {evictions}, re-timings "
+                "{retimings}, ghost pops {ghost_pops}, variants undone {variant_undos}".format(
+                    cell=cell["label"], **c))
+        out["cells"].append(line)
+        say("[faults] ({cell}) {scenario} @ {platform} {duration} s, engine=batch: {trials} trials "
+            "in {wall_s:.3f} s = {trials_per_s:.3f} trials/s (host soa grid {host_soa_wall_s:.3f} s); "
+            "{evicted} layers evicted, {remapped} remapped; every result equal to the host soa "
+            "grid's".format(**line))
+
+    # the fault lane's price on one host pace: (f)'s terastal cell, faulted
+    # (the down spec) against fault-free, from this call
+    (free,) = [c for c in out["cells"][1]["groups"]]
+    (down,) = [c for c in out["cells"][0]["groups"]
+               if c["scheduler"] == "terastal" and c["faults"] == FAULT_SPECS[0]]
+    out["us_ratio"] = down["us_per_iteration"] / free["us_per_iteration"]
+    say(f"[faults] (f) terastal, us an iteration faulted ({FAULT_SPECS[0]}) / fault-free: "
+        f"{down['us_per_iteration']:.1f} / {free['us_per_iteration']:.1f} = {out['us_ratio']:.3f}")
+
+    prof = FAULT_PROFILE
+    plans, tasks = SCENARIOS["multicam_heavy"].plans(PLATFORMS["6k_1ws2os"])
+    seeds = list(range(prof["seeds"]))
+    out["profile"] = {}
+    for label, spec in (("faulted", prof["spec"]), ("fault-free", "none")):
+        stats = {}
+        dev = device_activity(torch, lambda: engine_batch.simulate_batch(
+            plans, tasks, prof["duration"], make_scheduler("terastal"), seeds, faults=spec,
+            device="cuda", stats=stats))
+        n_dev = sum(n for n, _ in dev.values())
+        out["profile"][label] = p = dict(
+            faults=spec, iterations=stats["iterations"], device_ops=n_dev,
+            device_ops_per_iteration=n_dev / stats["iterations"],
+            device_us_per_iteration=sum(ms for _, ms in dev.values()) / stats["iterations"] * 1e3)
+        if n_dev:
+            say("[faults] device ops ({label}, terastal, {n} seeds, {d} s, faults={faults}): "
+                "{device_ops} over {iterations} iterations = {device_ops_per_iteration:.1f} an "
+                "iteration, {device_us_per_iteration:.1f} us of device time an iteration".format(
+                    label=label, n=prof["seeds"], d=prof["duration"], **p))
+        else:
+            say(f"[faults] device ops ({label}): not measured "
+                "(torch.profiler recorded no device activity)")
+    f, g = out["profile"]["faulted"], out["profile"]["fault-free"]
+    if f["device_ops"] and g["device_ops"]:
+        out["ops_ratio"] = f["device_ops_per_iteration"] / g["device_ops_per_iteration"]
+        say(f"[faults] device ops an iteration faulted / fault-free: {out['ops_ratio']:.3f}")
+
+
 def main():
     import torch
 
@@ -1414,6 +1554,19 @@ def main():
         f"{counts}; phase (v) took {time.perf_counter() - t0:.1f} s")
     if counts != (0, 0, 0):
         fail(f"phase (v) launched kernels of the port: {counts}")
+
+    # (vi) the fault lane of the batched engine: no kernel of the port either
+    s2d_kernel.s2d_conv_cuda.launches = 0
+    dec_kernel.decode_attn_cuda.launches = 0
+    ssd_kernel.ssd_scan_cuda.launches = 0
+    t0 = time.perf_counter()
+    fault_lane(torch, report)
+    counts = (s2d_kernel.s2d_conv_cuda.launches, dec_kernel.decode_attn_cuda.launches,
+              ssd_kernel.ssd_scan_cuda.launches)
+    say(f"[faults] counts read after phase (vi): s2d_conv, decode_attn, ssd_scan launches = "
+        f"{counts}; phase (vi) took {time.perf_counter() - t0:.1f} s")
+    if counts != (0, 0, 0):
+        fail(f"phase (vi) launched kernels of the port: {counts}")
 
     # ---- 5. kernels line -----------------------------------------------------
     # the main path's work: its variant layers once each, B=1, f32

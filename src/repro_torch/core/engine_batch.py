@@ -45,9 +45,24 @@ hazard: it accumulates the retained product in application order, so
 with >= 3 applied variants a product within an ulp of theta could flip
 (documented in the JAX module; never observed on the pinned grids).
 
-Not in this module yet: the fault lane (``pack_fault_epochs`` and the
-``faulted`` branch of the JAX program).  An active fault model raises
-:class:`BatchUnsupportedError`; use ``engine="soa"`` for fault cells.
+Fault injection (``restart`` interrupted-work policy)
+-----------------------------------------------------
+The reference's fault lane, in this module's layout.  A lane's fault
+timeline is seed-deterministic, so the host pre-binds it as epochs
+(``scheduler_torch.pack_fault_epochs``): the event stream, and per epoch
+the ``[NA]`` latency multiplier (``+inf`` on a down accelerator) and the
+capability-derived vdl / remaining-min / min-latency tables.  The loop
+then pops four ways (arrival, then fault, then finish or ghost at equal
+times), evicts or re-times the in-flight layer of a faulted accelerator
+op for op as ``faults.evict_busy_adjust`` / ``retime_busy_adjust`` do
+(the variant bookkeeping undone from the product saved at dispatch), and
+replays each orphaned finish as a *ghost* pop, since the scalar engines'
+stale heap pops still start a round.  Each round reads an epoch view of
+``cache``: its latency rows times the epoch multiplier and its five
+scalars gathered again from the epoch tables.  The lane is a static
+branch: with no active fault model the loop runs exactly the fault-free
+ops.  ``interrupted="resume"`` stays rejected, as in the reference:
+fractional layer progress re-times re-dispatches mid-rollout.
 """
 
 from __future__ import annotations
@@ -107,6 +122,21 @@ class _Tables(NamedTuple):
     bind: torch.Tensor    # [M, LP+1, 2*NA + len(_BIND_COLS)] per (m, l)
     factor: torch.Tensor  # [M, LP]    per-variant retained factor (pad 0)
     theta: torch.Tensor   # [M]
+    nl: torch.Tensor      # [M] layer counts
+
+
+class _Faults(NamedTuple):
+    """One call's fault timeline (``scheduler_torch.pack_fault_epochs``)."""
+
+    fe_t: torch.Tensor     # [B, NF+1] event times, +inf pad and sentinel
+    fe_acc: torch.Tensor   # [B, NF]
+    fe_code: torch.Tensor  # [B, NF]   0 down / 1 up / 2 scale
+    fe_val: torch.Tensor   # [B, NF]   scale factor (1 otherwise)
+    n_f: torch.Tensor      # [B]
+    mult_ep: torch.Tensor  # [B, NF+1, NA]         latency multiplier
+    vdlr_ep: torch.Tensor  # [B, NF+1, M*(LP+1)]   vdl chains, flat per model
+    rm_ep: torch.Tensor    # [B, NF+1, M*(LP+2)]   remaining-min
+    minl_ep: torch.Tensor  # [B, NF+1, M*LP]       per-layer min latency
 
 
 class _Out(NamedTuple):
@@ -121,6 +151,9 @@ class _Out(NamedTuple):
     busy_h: np.ndarray    # [B, NA]
     rounds: np.ndarray    # [B]
     drained: np.ndarray   # [B] bool — horizon fully consumed
+    evict_cnt: np.ndarray  # [B, NR] in-flight evictions (faults)
+    remap_cnt: np.ndarray  # [B, NR] post-eviction re-dispatches
+    fault_counts: np.ndarray  # [4] evictions, re-timings, ghost pops, undos
     iterations: int       # host loop iterations run
 
 
@@ -174,7 +207,8 @@ def _build_tables(plans: Sequence[ModelPlan], device: torch.device):
     def dev(a):
         return torch.from_numpy(a).to(device)
 
-    return _Tables(bind=dev(bind), factor=dev(factor), theta=dev(theta)), LP, NA
+    tables = _Tables(bind=dev(bind), factor=dev(factor), theta=dev(theta), nl=dev(nl))
+    return tables, LP, NA
 
 
 def _g(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -191,6 +225,7 @@ def _run_trials(
     T: _Tables,
     at, am, d_abs, d_eps12, ne,  # [B, NR+1], [B, NR], [B, NR], [B, NR], [B]
     duration: float, max_it: int,
+    F: Optional[_Faults] = None,
     *, kind: str, mode: str, use_budgets: bool, use_variants: bool,
     na: int, lp: int,
 ) -> _Out:
@@ -200,10 +235,12 @@ def _run_trials(
     the original and variant latency rows, then the five per-slot
     scalars (virtual deadline, next virtual deadline, next layer's min
     latency, remaining-min, EDF key), so a bind is one predicated write
-    and a pick reads its whole row with one gather."""
+    and a pick reads its whole row with one gather.  ``F`` turns on the
+    fault lane (a static branch: ``None`` runs the fault-free ops)."""
     NA, LP = na, lp
     B, NR = am.shape
     dev = am.device
+    faulted = F is not None
     NRa = torch.arange(NR, device=dev)
     NAa = torch.arange(NA, device=dev)
     IMAX = torch.iinfo(_I64).max
@@ -239,15 +276,107 @@ def _run_trials(
     run_req = full((B, NA), -1, _I64)
     no_var = torch.zeros(B, dtype=torch.bool, device=dev)
     inf_row = full((B, NA), _INF)
+    if faulted:
+        # the fault lane: epoch cursor and per-acc throttle scale; ghost
+        # slots (orphaned finishes the scalar engines pop as no-ops, whose
+        # pops still start rounds); the dispatch bookkeeping an eviction
+        # or re-timing undoes; per-request eviction / remap counters; and
+        # the lanes' totals of evictions, re-timings, ghost pops and undos
+        NF = F.fe_acc.shape[1]
+        NFa = torch.arange(NF, device=dev)
+        fi = full((B,), 0, _I64)
+        fscale = full((B, NA), 1.0)
+        gh_t = full((B, NF), _INF)
+        gh_cnt = full((B, NF), 0, _I64)
+        gh_n = full((B,), 0, _I64)
+        disp_t0 = full((B, NA), 0.0)
+        disp_w = full((B, NA), 0.0)
+        disp_h = full((B, NA), 0.0)
+        run_uv = full((B, NA), False, torch.bool)
+        run_prev_ret = full((B, NA), 1.0)
+        ev_pend = full((B, NR), False, torch.bool)
+        evict_cnt = full((B, NR), 0, _I64)
+        remap_cnt = full((B, NR), 0, _I64)
+        n_evict, n_retime, n_ghost, n_undo = (full((B,), 0, _I64) for _ in range(4))
+        # per-slot gather bases into the flat per-model epoch tables
+        nl_r = T.nl[am]
+        base_v, base_r, base_m = am * (LP + 1), am * (LP + 2), am * LP
 
     def lanes_active():
-        return (ai < ne) | (run_req >= 0).any(1)
+        active = (ai < ne) | (run_req >= 0).any(1)
+        if faulted:
+            active = active | (fi < F.n_f) | (gh_t < _INF).any(1)
+        return active
 
     BC = {name: 2 * NA + j for j, name in enumerate(_BIND_COLS)}
 
+    def bind(cache, hit, bt, r, m):
+        """Request ``r`` (of model ``m``) becomes ready at the layer whose
+        bind-table row is ``bt``: its cache row, written where ``hit``."""
+        a = _g(at, r)
+        dr = _g(d_abs, r)
+        if use_variants:
+            # LayerVariantFeasible at push time (static while ready)
+            vok = (bt[:, BC["hasv"]] > 0.5) & (
+                _g(ret, r) * bt[:, BC["factor"]] >= T.theta[m]
+            )
+            latv_row = torch.where(vok[:, None], bt[:, NA:2 * NA], _INF)
+        else:
+            latv_row = inf_row
+        has_next = bt[:, BC["has_next"]] > 0.5
+        rm1 = dr - bt[:, BC["rm1"]]
+        if use_budgets:
+            vdl = a + bt[:, BC["vdlr"]]
+            vdln = torch.where(has_next, a + bt[:, BC["vdlr1"]], dr)
+        else:
+            vdl = rm1
+            vdln = torch.where(has_next, dr - bt[:, BC["rm2"]], dr)
+        nm = torch.where(has_next, bt[:, BC["minl1"]], 0.0)
+        row = torch.cat([
+            bt[:, :NA], latv_row,
+            torch.stack([vdl, vdln, nm, bt[:, BC["rm"]], rm1], 1),
+        ], 1)
+        return torch.where(hit[:, :, None], row[:, None, :], cache)
+
+    def epoch_view(cache):
+        """The cache as the current capability epoch sees it: latency rows
+        times the epoch multiplier (``+inf`` on a down accelerator), the
+        five scalars gathered again from the epoch tables, with the
+        reference's clamps (rows not in flight read clamped garbage that
+        no ready mask lets through)."""
+        mult = _row(F.mult_ep, fi)                     # [B, NA]
+        vdlr_f = _row(F.vdlr_ep, fi)                   # [B, M*(LP+1)]
+        rm_f = _row(F.rm_ep, fi)                       # [B, M*(LP+2)]
+        minl_f = _row(F.minl_ep, fi)                   # [B, M*LP]
+        has_nx = (layer + 1) < nl_r
+        rm_l1 = rm_f.gather(1, base_r + (layer + 1).clamp(max=LP + 1))
+        if use_budgets:
+            vdl_v = at[:, :NR] + vdlr_f.gather(1, base_v + layer.clamp(max=LP))
+            vdln_v = torch.where(
+                has_nx,
+                at[:, :NR] + vdlr_f.gather(1, base_v + (layer + 1).clamp(max=LP)),
+                d_abs,
+            )
+        else:
+            vdl_v = d_abs - rm_l1
+            vdln_v = torch.where(
+                has_nx,
+                d_abs - rm_f.gather(1, base_r + (layer + 2).clamp(max=LP + 1)),
+                d_abs,
+            )
+        nm_v = torch.where(
+            has_nx, minl_f.gather(1, base_m + (layer + 1).clamp(max=LP - 1)), 0.0
+        )
+        rm_v = rm_f.gather(1, base_r + layer.clamp(max=LP + 1))
+        ek_v = d_abs - rm_l1
+        return torch.cat([
+            cache[:, :, :S0] * torch.cat([mult, mult], 1)[:, None, :],
+            torch.stack([vdl_v, vdln_v, nm_v, rm_v, ek_v], 2),
+        ], 2)
+
     # ---- scheduler kernels: (valid, i, k, use_var, cost) per pick, each
     # [B, P], in reference emission order --------------------------------
-    def kern_terastal(ready, idle0, now):
+    def kern_terastal(cache, ready, idle0, now):
         c_lat = cache[:, :, :V0]
         c_latv = cache[:, :, V0:S0]
         c_vdl = cache[:, :, VDL]
@@ -324,7 +453,7 @@ def _run_trials(
             alive = alive & ~((NRa == i[:, None]) & valid[:, None])
         return picks
 
-    def kern_greedy(ready, idle0, now):
+    def kern_greedy(cache, ready, idle0, now):
         c_lat = cache[:, :, :V0]
         if kind == "fcfs":
             key = at[:, :NR]                       # (arrival, rid)
@@ -366,10 +495,39 @@ def _run_trials(
             arr_next = _g(at, ai)
             ft_min = fin_t.amin(1)
             k_f = torch.where(fin_t == ft_min[:, None], fin_cnt, IMAX).argmin(1)
-            arr_first = arr_next <= ft_min
-            is_arr = arr_first & act
-            is_fin = ~arr_first & act
-            now = torch.where(arr_first, arr_next, ft_min)
+            if faulted:
+                # arrival < fault < finish/ghost at equal times (the
+                # reference's counters: arrivals, then faults, then
+                # dynamic finishes); ghost vs finish on the stored counters
+                f_next = _g(F.fe_t, fi)
+                gh_min = gh_t.amin(1)
+                oth = torch.minimum(ft_min, gh_min)
+                arr_first = arr_next <= torch.minimum(f_next, oth)
+                fault_first = ~arr_first & (f_next <= oth)
+                g_i = torch.where(gh_t == gh_min[:, None], gh_cnt, IMAX).argmin(1)
+                ghost_first = ~arr_first & ~fault_first & (
+                    (gh_min < ft_min)
+                    | ((gh_min == ft_min) & (_g(gh_cnt, g_i) < _g(fin_cnt, k_f)))
+                )
+                is_arr = arr_first & act
+                is_fault = fault_first & act
+                is_ghost = ghost_first & act
+                is_fin = ~(arr_first | fault_first | ghost_first) & act
+                pop_rf = is_arr | is_fin
+                now = torch.where(
+                    arr_first, arr_next,
+                    torch.where(fault_first, f_next,
+                                torch.where(ghost_first, gh_min, ft_min)),
+                )
+                # a ghost pop only clears its slot; it still reaches the round
+                gh_t = torch.where((NFa == g_i[:, None]) & is_ghost[:, None], _INF, gh_t)
+                n_ghost = n_ghost + is_ghost
+            else:
+                arr_first = arr_next <= ft_min
+                is_arr = arr_first & act
+                is_fin = ~arr_first & act
+                pop_rf = act
+                now = torch.where(arr_first, arr_next, ft_min)
 
             # slot == rid == stream index; garbage on a masked lane, so
             # clamp it into range for the gathers (its writes are masked)
@@ -381,7 +539,7 @@ def _run_trials(
 
             hit_f = (NAa == k_f[:, None]) & is_fin[:, None]
             at_r = NRa == r[:, None]
-            hit_r = at_r & act[:, None]
+            hit_r = at_r & pop_rf[:, None]
             hit_d = at_r & done[:, None]
             ai = ai + is_arr
             fin_t = torch.where(hit_f, _INF, fin_t)
@@ -393,44 +551,118 @@ def _run_trials(
             done_ctr = done_ctr + done
 
             # bind: request r becomes ready at layer l_new
-            a = _g(at, r)
-            dr = _g(d_abs, r)
-            if use_variants:
-                # LayerVariantFeasible at push time (static while ready)
-                vok = (bt[:, BC["hasv"]] > 0.5) & (
-                    _g(ret, r) * bt[:, BC["factor"]] >= T.theta[m]
+            cache = bind(cache, at_r & (pop_rf & ~done)[:, None], bt, r, m)
+
+            if faulted:
+                # ---- capability event (masked is_fault) -------------------
+                fi_c = fi.clamp(max=NF - 1)
+                fk = _g(F.fe_acc, fi_c)
+                code = _g(F.fe_code, fi_c)
+                val = _g(F.fe_val, fi_c)
+                is_down = is_fault & (code == 0)
+                is_up = is_fault & (code == 1)
+                is_scale = is_fault & (code == 2)
+                r_e = _g(run_req, fk)
+                has_run = r_e >= 0
+                # down with an in-flight layer: undo the dispatch (variant
+                # bookkeeping, un-run busy time), back to ready
+                ev = is_down & has_run
+                r_ec = r_e.clamp(min=0)
+                l_e = _g(layer, r_ec)
+                m_e = _g(am, r_ec)
+                undo = ev & _g(run_uv, fk)
+                hit_u = (NRa == r_e[:, None]) & undo[:, None]
+                # exact ret restore: the evicted variant is the request's
+                # latest apply, so the product saved at dispatch undoes it
+                ret = torch.where(hit_u, _g(run_prev_ret, fk)[:, None], ret)
+                app_seq.scatter_(
+                    1, torch.where(undo, r_ec * LP + l_e, NR * LP)[:, None], -1
                 )
-                latv_row = torch.where(vok[:, None], bt[:, NA:2 * NA], _INF)
-            else:
-                latv_row = inf_row
-            has_next = bt[:, BC["has_next"]] > 0.5
-            rm1 = dr - bt[:, BC["rm1"]]
-            if use_budgets:
-                vdl = a + bt[:, BC["vdlr"]]
-                vdln = torch.where(has_next, a + bt[:, BC["vdlr1"]], dr)
-            else:
-                vdl = rm1
-                vdln = torch.where(has_next, dr - bt[:, BC["rm2"]], dr)
-            nm = torch.where(has_next, bt[:, BC["minl1"]], 0.0)
-            row = torch.cat([
-                bt[:, :NA], latv_row,
-                torch.stack([vdl, vdln, nm, bt[:, BC["rm"]], rm1], 1),
-            ], 1)
-            hit = at_r & (act & ~done)[:, None]
-            cache = torch.where(hit[:, :, None], row[:, None, :], cache)
+                app_cnt = app_cnt - hit_u.long()
+                # faults.evict_busy_adjust, op for op
+                t0 = _g(disp_t0, fk)
+                rem0 = duration - t0
+                rem0 = torch.where(rem0 > 0.0, rem0, 0.0)
+                new_w = now - t0
+                new_h = torch.minimum(new_w, rem0)
+                dw = new_w - _g(disp_w, fk)
+                dh = new_h - _g(disp_h, fk)
+                at_k = NAa == fk[:, None]
+                hit_e = at_k & ev[:, None]
+                # scale with an in-flight layer: re-time its finish by
+                # new / old scale (faults.retime_busy_adjust)
+                old = _g(fscale, fk)
+                changed = is_scale & has_run & (val != old)
+                fin_old = _g(busy, fk)
+                fin_new = now + (fin_old - now) * (val / old)
+                nw2 = fin_new - t0
+                nh2 = torch.minimum(nw2, rem0)
+                dw2 = nw2 - _g(disp_w, fk)
+                dh2 = nh2 - _g(disp_h, fk)
+                hit_s = at_k & changed[:, None]
+                # eviction and re-timing both orphan the old finish: it
+                # becomes a ghost (a stale heap entry in the reference)
+                ghost = ev | changed
+                gh_hit = (NFa == gh_n[:, None]) & ghost[:, None]
+                hit_dn = at_k & is_down[:, None]
+                hit_up = at_k & is_up[:, None]
+                gh_t = torch.where(gh_hit, _g(fin_t, fk)[:, None], gh_t)
+                gh_cnt = torch.where(gh_hit, _g(fin_cnt, fk)[:, None], gh_cnt)
+                gh_n = gh_n + ghost
+                busy = torch.where(
+                    hit_dn, _INF,
+                    torch.where(hit_up, now[:, None],
+                                torch.where(hit_s, fin_new[:, None], busy)),
+                )
+                busy_t = torch.where(
+                    hit_e, busy_t + dw[:, None],
+                    torch.where(hit_s, busy_t + dw2[:, None], busy_t),
+                )
+                busy_h = torch.where(
+                    hit_e, busy_h + dh[:, None],
+                    torch.where(hit_s, busy_h + dh2[:, None], busy_h),
+                )
+                fin_t = torch.where(
+                    hit_dn, _INF, torch.where(hit_s, fin_new[:, None], fin_t)
+                )
+                # the re-timed finish takes the counter before the round's
+                # emissions take theirs
+                fin_cnt = torch.where(hit_s, cnt[:, None], fin_cnt)
+                run_req = torch.where(hit_dn, -1, run_req)
+                cnt = cnt + changed
+                fscale = torch.where(at_k & is_scale[:, None], val[:, None], fscale)
+                hit_ev = (NRa == r_e[:, None]) & ev[:, None]
+                state = torch.where(hit_ev, 1, state)
+                ev_pend = ev_pend | hit_ev
+                evict_cnt = evict_cnt + hit_ev.long()
+                disp_w = torch.where(hit_s, nw2[:, None], disp_w)
+                disp_h = torch.where(hit_s, nh2[:, None], disp_h)
+                fi = fi + is_fault
+                n_evict = n_evict + ev
+                n_retime = n_retime + changed
+                n_undo = n_undo + undo
+                # bind the evicted row again at its current layer, with the
+                # ret left after the undo (its variant may be feasible again)
+                cache = bind(cache, hit_ev, T.bind[m_e, l_e.clamp(max=LP)], r_ec, m_e)
 
             # batch simultaneous events before scheduling (ref: abs < 1e-15
             # against the just-popped now; empty heap -> +inf -> round runs)
             t_next = torch.minimum(_g(at, ai), fin_t.amin(1))
+            if faulted:
+                t_next = torch.minimum(
+                    t_next, torch.minimum(_g(F.fe_t, fi), gh_t.amin(1))
+                )
             do_round = ~((t_next - now).abs() < 1e-15) & act
             rounds = rounds + do_round
+            # the round reads the current capability epoch's view
+            view = epoch_view(cache) if faulted else cache
             ready0 = (state == 1) & do_round[:, None]
-            dropm = ready0 & ((now[:, None] + cache[:, :, RM]) > d_eps12)
+            dropm = ready0 & ((now[:, None] + view[:, :, RM]) > d_eps12)
             state = torch.where(dropm, 4, state)   # early-drop
             missed = missed | dropm
             ready = ready0 & ~dropm
             idle = busy <= (now + 1e-15)[:, None]
-            picks = kern(ready, idle, now)
+            picks = kern(view, ready, idle, now)
 
             # apply emissions.  Valid picks land on distinct accelerators
             # and distinct rows, so they apply as one set of predicated
@@ -447,15 +679,30 @@ def _run_trials(
             p_a = hit_a.to(torch.uint8).argmax(1)     # the pick on each acc
             fin_a = fin.gather(1, p_a)
             c_a = pc.gather(1, p_a)
-            run_req = torch.where(on_a, pi.gather(1, p_a), run_req)
+            hc_a = hc.gather(1, p_a)
+            pi_a = pi.gather(1, p_a)
+            if faulted:
+                # the dispatch bookkeeping an eviction or re-timing undoes;
+                # the pre-round ret is the product before this apply
+                disp_t0 = torch.where(on_a, now[:, None], disp_t0)
+                disp_w = torch.where(on_a, c_a, disp_w)
+                disp_h = torch.where(on_a, hc_a, disp_h)
+                run_uv = torch.where(on_a, uv.gather(1, p_a), run_uv)
+                run_prev_ret = torch.where(on_a, ret.gather(1, pi_a), run_prev_ret)
+            run_req = torch.where(on_a, pi_a, run_req)
             fin_t = torch.where(on_a, fin_a, fin_t)
             fin_cnt = torch.where(on_a, (cnt[:, None] + n_before).gather(1, p_a),
                                   fin_cnt)
             busy = torch.where(on_a, fin_a, busy)
             busy_t = torch.where(on_a, busy_t + c_a, busy_t)
-            busy_h = torch.where(on_a, busy_h + hc.gather(1, p_a), busy_h)
+            busy_h = torch.where(on_a, busy_h + hc_a, busy_h)
             hit_i = (pi[:, :, None] == NRa) & valid[:, :, None]  # [B, P, NR]
-            state = torch.where(hit_i.any(1), 2, state)
+            picked = hit_i.any(1)
+            state = torch.where(picked, 2, state)
+            if faulted:
+                # a dispatched evicted-pending request is remapped
+                remap_cnt = remap_cnt + (picked & ev_pend).long()
+                ev_pend = ev_pend & ~picked
             cnt = cnt + valid.sum(1)
             if kind == "terastal":
                 # variant bookkeeping from the pre-round layer / app_cnt
@@ -477,7 +724,13 @@ def _run_trials(
     drained = ~lanes_active()
     out = [state, missed, app_seq[:, : NR * LP].reshape(B, NR, LP), app_cnt,
            done_seq, busy_t, busy_h, rounds, drained]
+    if faulted:
+        out += [evict_cnt, remap_cnt,
+                torch.stack([n_evict, n_retime, n_ghost, n_undo]).sum(1)]
     host = [t.cpu().numpy() for t in out]  # the host copy
+    if not faulted:
+        zero = np.zeros((B, NR), np.int64)
+        host += [zero, zero, np.zeros(4, np.int64)]
     return _Out(*host, iterations=iterations)
 
 
@@ -511,13 +764,6 @@ def _validate(
             "partial layer progress re-times re-dispatches mid-rollout, "
             "which the pre-bound capability epochs cannot express; use "
             "engine='soa' or engine='reference'"
-        )
-    if fault_model is not None and fault_model.active:
-        raise BatchUnsupportedError(
-            "engine='batch' of the torch port does not support fault "
-            f"injection yet ({fault_model.format()!r}): the fault lane "
-            "(pack_fault_epochs and the faulted branch) comes in a later "
-            "slice; use engine='soa' or engine='reference'"
         )
     if type(scheduler) not in (
         FcfsScheduler, EdfScheduler, DreamScheduler, TerastalScheduler
@@ -577,7 +823,9 @@ def simulate_batch(
     lane (the speculation bound failed — an engine bug, not a workload
     property) raises ``RuntimeError``.  When ``stats`` is a dict, the
     loop's ``iterations`` and the exact bound ``max_it`` are written
-    into it.
+    into it, and the lanes' totals of the fault lane's ``evictions``,
+    ``retimings``, ``ghost_pops`` and ``variant_undos`` (all 0 without
+    an active fault model).
     """
     from repro_torch.core.admission import make_admission_policy
     from repro_torch.core.budget_online import make_budget_policy
@@ -617,19 +865,46 @@ def simulate_batch(
         (len(t) + int(nl_by_model[m].sum()) for t, m in events), default=2
     )
 
-    def lane(name, dtype):
-        return torch.from_numpy(buf[name].astype(dtype)).to(dev)
+    def lane(name, dtype, src=buf):
+        return torch.from_numpy(src[name].astype(dtype)).to(dev)
+
+    faulted = fault_model is not None and fault_model.active
+    F = None
+    n_spans = [0] * len(seeds)
+    if faulted:
+        fbuf, _, n_spans = scheduler_torch.pack_fault_epochs(
+            fault_model, plans, duration, seeds, b_pad, LP
+        )
+        # each fault event adds at most three pops: itself, the ghost of
+        # an orphaned finish, and the re-dispatched layer's new finish
+        max_it += 3 * int(fbuf["n_f"].max())
+
+        def epochs(name):
+            a = fbuf[name]
+            return torch.from_numpy(a.reshape(a.shape[0], a.shape[1], -1)).to(dev)
+
+        F = _Faults(
+            fe_t=lane("fe_t", np.float64, fbuf),
+            fe_acc=lane("fe_acc", np.int64, fbuf),
+            fe_code=lane("fe_code", np.int64, fbuf),
+            fe_val=lane("fe_val", np.float64, fbuf),
+            n_f=lane("n_f", np.int64, fbuf),
+            mult_ep=epochs("mult_ep"), vdlr_ep=epochs("vdlr_ep"),
+            rm_ep=epochs("rm_ep"), minl_ep=epochs("minl_ep"),
+        )
 
     out = _run_trials(
         tables,
         lane("arr_t", np.float64), lane("arr_m", np.int64),
         lane("dl", np.float64), lane("dl12", np.float64),
         lane("n_ev", np.int64),
-        float(duration), int(max_it),
+        float(duration), int(max_it), F,
         na=NA, lp=LP, **cfg,
     )
     if stats is not None:
-        stats.update(iterations=out.iterations, max_it=int(max_it))
+        stats.update(iterations=out.iterations, max_it=int(max_it),
+                     **dict(zip(("evictions", "retimings", "ghost_pops", "variant_undos"),
+                                (int(c) for c in out.fault_counts))))
 
     drained = out.drained[: len(seeds)]
     if not drained.all():
@@ -644,6 +919,8 @@ def simulate_batch(
         state = out.state[b, :n]
         missed_f = out.missed[b, :n]
         app_cnt = out.app_cnt[b, :n]
+        evict_c = out.evict_cnt[b, :n]
+        remap_c = out.remap_cnt[b, :n]
         per_model: Dict[int, ModelStats] = {t.model_idx: ModelStats() for t in tasks}
         for m in per_model:
             mm = models[:n] == m
@@ -655,6 +932,8 @@ def simulate_batch(
             # every released request ends completed, dropped, or in flight
             st.in_flight = st.released - st.completed - st.dropped
             st.variants_applied = int(app_cnt[mm].sum())
+            st.evicted = int(evict_c[mm].sum())
+            st.remapped = int(remap_c[mm].sum())
         # retained_sum: host replay in completion order, through the same
         # frozenset unions + combo_retained calls the reference performs
         done = np.flatnonzero(state == 3)
@@ -674,7 +953,7 @@ def simulate_batch(
                 scheduler_name=scheduler.name,
                 acc_busy_in_horizon=out.busy_h[b].copy(),
                 rounds=int(out.rounds[b]),
-                faulted_spans=0,
+                faulted_spans=n_spans[b],
             )
         )
     return results

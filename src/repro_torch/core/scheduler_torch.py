@@ -13,10 +13,12 @@ position, stage-2 assignments ``NJ + k``, unassigned ``NJ + NA``).
 Copied verbatim from the original module (numpy, no device): ``EPS``,
 ``NEG``, ``BACKFILL_MODES``, ``bucket_nj``, ``_buffers`` and the staging
 halves of ``pack_view`` / ``pack_arrays``, and ``bucket_ev``,
-``_trial_buffers``, ``pack_trials``.  Only the final staging differs:
-one ``torch.tensor(..., device=...)`` per field where the original has
+``_trial_buffers``, ``pack_trials``, and the fault-epoch packer
+``_FAULT_CODES`` / ``pack_fault_epochs`` (its helpers from the port's own
+copy of ``faults``).  Only the final staging differs: one
+``torch.tensor(..., device=...)`` per field where the original has
 ``jnp.asarray`` (a copy, as the host buffers are reused by the next
-call).  The fault-epoch packer (``pack_fault_epochs``) is not ported yet.
+call).
 
 The round, and why it is bit-identical
 --------------------------------------
@@ -448,3 +450,104 @@ def pack_trials(events: "list[tuple]", deadline_by_model: np.ndarray):
         buf["dl"][b, :n] = dl
         buf["dl12"][b, :n] = dl + 1e-12
     return buf, b_pad, nr_pad
+
+
+_FAULT_CODES = {"down": 0, "up": 1, "scale": 2}
+
+
+def pack_fault_epochs(fault_model, plans, duration, seeds, b_pad: int, lp: int):
+    """Pre-bind each lane's capability timeline as time-indexed epoch
+    planes for the batch engine's fault path.
+
+    A lane's capability state is piecewise-constant between its fault
+    events, so the whole timeline is NF events plus NF+1 *epochs*; this
+    stages, per lane, the event stream (``fe_t``/``fe_acc``/``fe_code``/
+    ``fe_val``/``n_f``) and, per epoch, every capability-derived table
+    the round kernels read — the ``[NA]`` latency multiplier
+    (``mult_ep``), the virtual-deadline chains (``vdlr_ep``; the
+    re-tightened chains under ``retighten=true`` via
+    ``faults.retightened_vdl``, the frozen offline chains otherwise),
+    the remaining-min suffix sums (``rm_ep``) and per-layer min
+    latencies (``minl_ep``).  All planes are replayed event-by-event
+    through the exact host helpers the scalar engines call
+    (``effective_plans`` / ``fault_multipliers``), so fault-time
+    arithmetic is bit-identical by construction.
+
+    The event axis is padded to a pow2 bucket (one compile per bucket);
+    pad events carry ``fe_t = +inf`` (never popped) and pad epochs
+    repeat the lane's final capability state (never entered).  Returns
+    ``(fbuf, nf_pad, n_spans)`` with ``n_spans`` the per-seed
+    intersecting-window counts for ``SimResult.faulted_spans``.
+    """
+    from repro_torch.core.faults import (
+        effective_plans,
+        fault_multipliers,
+        retightened_vdl,
+    )
+
+    M = len(plans)
+    NA = plans[0].platform.n_acc
+    timelines = [fault_model.timeline(NA, duration, s) for s in seeds]
+    NF = max((len(ev) for ev, _ in timelines), default=0)
+    nf_pad = 1 << (max(NF, 1) - 1).bit_length()
+
+    fbuf = {
+        # +1 sentinel column: the loop peeks fe_t[fi] with fi == n_f
+        # after the last fault; +inf reads "no more faults"
+        "fe_t": np.full((b_pad, nf_pad + 1), np.inf),
+        "fe_acc": np.zeros((b_pad, nf_pad), np.int32),
+        "fe_code": np.zeros((b_pad, nf_pad), np.int32),
+        "fe_val": np.ones((b_pad, nf_pad)),
+        "n_f": np.zeros(b_pad, np.int32),
+        "mult_ep": np.ones((b_pad, nf_pad + 1, NA)),
+        "vdlr_ep": np.zeros((b_pad, nf_pad + 1, M, lp + 1)),
+        "rm_ep": np.zeros((b_pad, nf_pad + 1, M, lp + 2)),
+        "minl_ep": np.zeros((b_pad, nf_pad + 1, M, lp)),
+    }
+
+    def fill_epoch(b, e, eff, mult):
+        fbuf["mult_ep"][b, e] = mult
+        chains = (
+            retightened_vdl(plans, eff)
+            if fault_model.retighten
+            else [None] * M
+        )
+        for m, (p, ep) in enumerate(zip(plans, eff)):
+            L = len(p.model.layers)
+            ch = chains[m]
+            fbuf["vdlr_ep"][b, e, m, :L] = p.vdl_rel if ch is None else ch
+            fbuf["rm_ep"][b, e, m, : L + 1] = ep.remaining_min
+            fbuf["minl_ep"][b, e, m, :L] = ep.min_lat
+
+    nominal = fault_multipliers([1.0] * NA, [True] * NA)
+    fill_epoch(0, 0, plans, nominal)
+    # broadcast the nominal epoch everywhere (pad lanes, epoch 0, and pad
+    # epochs start from it; the replay below overwrites live epochs)
+    for key in ("mult_ep", "vdlr_ep", "rm_ep", "minl_ep"):
+        fbuf[key][:, :] = fbuf[key][0, 0]
+
+    n_spans = []
+    for b, (events, spans) in enumerate(timelines):
+        n_spans.append(spans)
+        fbuf["n_f"][b] = len(events)
+        avail = [True] * NA
+        fscale = [1.0] * NA
+        for e_i, ev in enumerate(events):
+            fbuf["fe_t"][b, e_i] = ev.t
+            fbuf["fe_acc"][b, e_i] = ev.acc
+            fbuf["fe_code"][b, e_i] = _FAULT_CODES[ev.code]
+            fbuf["fe_val"][b, e_i] = ev.value if ev.code == "scale" else 1.0
+            if ev.code == "down":
+                avail[ev.acc] = False
+            elif ev.code == "up":
+                avail[ev.acc] = True
+            else:
+                fscale[ev.acc] = ev.value
+            mult = fault_multipliers(fscale, avail)
+            eff = effective_plans(plans, mult)
+            fill_epoch(b, e_i + 1, eff, mult)
+        # pad epochs (fi never reaches them) repeat the final state
+        if len(events) < nf_pad:
+            for key in ("mult_ep", "vdlr_ep", "rm_ep", "minl_ep"):
+                fbuf[key][b, len(events) + 1 :] = fbuf[key][b, len(events)]
+    return fbuf, nf_pad, n_spans

@@ -29,7 +29,8 @@ runs on a machine that has only torch:
   log_a, dt f32), bit-identical repeats and CUDA-graph replay (the C Bᵀ
   workspace allocated under capture), the wrapper's rejections, and a
   reduced mamba2 prefill through the kernel, one call per layer;
-* ``simulate_batch`` on the card against the host SoA engine;
+* ``simulate_batch`` on the card against the host SoA engine, fault-free
+  and with a ``down`` window (the fault lane);
 * the device Terastal round (``core/scheduler_torch.terastal_round``, one
   CUDA graph per bucket) bit-equal to the same ops run eagerly on the card
   and on the host, for every backfill mode, and the SoA engine with every
@@ -200,6 +201,27 @@ def test_batch_engine_on_the_card_matches_host_soa(card):
         want = simulate(plans, tasks, 0.05, make_scheduler("terastal"), seed=s,
                         engine="soa")
         assert res.fingerprint() == want.fingerprint()
+
+
+def test_batch_engine_fault_lane_on_the_card_matches_host_soa(card):
+    """The fault lane on the card: a ``down`` window that opens and closes
+    inside the horizon, on the Table-II mix, lanes equal to the host SoA."""
+    from repro_torch.core import SCENARIOS, make_scheduler, simulate, simulate_batch
+    from repro_torch.costmodel.maestro import PLATFORMS
+
+    spec = "down(acc=0,start=0.1,duration=0.2)"
+    plans, tasks = SCENARIOS["multicam_heavy"].plans(PLATFORMS["6k_1ws2os"])
+    for sched in ("edf", "terastal"):
+        stats = {}
+        got = simulate_batch(plans, tasks, 0.35, make_scheduler(sched), [0, 1], faults=spec,
+                             device=card, stats=stats)
+        for s, res in zip([0, 1], got):
+            want = simulate(plans, tasks, 0.35, make_scheduler(sched), seed=s, faults=spec,
+                            engine="soa")
+            assert res.faulted_spans == want.faulted_spans == 1
+            assert res.fingerprint() == want.fingerprint(), (sched, s)
+        if sched == "edf":
+            assert stats["evictions"] > 0
 
 
 DECODE_SHAPES = [  # (B, L, H, Hkv, Dh, pos): tests/test_kernels.py, serving, ragged

@@ -100,18 +100,29 @@ def test_unsupported_axes_raise_named_errors():
 
 
 def test_fault_models_raise_until_the_fault_lane_is_ported():
+    """The fault lane is ported: only the ``resume`` policy still raises
+    (as in the reference); ``restart`` specs run and equal the reference's
+    SoA engine, through ``simulate_batch`` and ``simulate(engine="batch")``;
+    an inactive fault model is the fault-free engine."""
     plans, tasks = _cell()
     sched = P.make_scheduler("terastal")
     resume = "down(acc=0,start=0.01,duration=0.02,interrupted=resume)"
     with pytest.raises(BatchUnsupportedError, match="resume"):
         simulate_batch(plans, tasks, DUR, sched, SEEDS, faults=resume, device="cpu")
+    with pytest.raises(BatchUnsupportedError, match="resume"):
+        P.simulate(plans, tasks, DUR, sched, seed=0, engine="batch", faults=resume,
+                   device="cpu")
+    # both windows close inside 0.06 s
+    rp, rt = R.SATURATION_SCENARIOS[CELL].plans(R_PLATFORMS[PLATFORM])
     for spec in ("down(acc=0,start=0.01,duration=0.02)",
                  "throttle(acc=1,start=0.0,duration=0.05,factor=2)"):
-        with pytest.raises(BatchUnsupportedError, match="fault lane"):
-            simulate_batch(plans, tasks, DUR, sched, SEEDS, faults=spec, device="cpu")
-        with pytest.raises(BatchUnsupportedError, match="fault lane"):
-            P.simulate(plans, tasks, DUR, sched, seed=0, engine="batch", faults=spec,
-                       device="cpu")
+        want = [R.simulate(rp, rt, 0.06, R.make_scheduler("terastal"), seed=s, faults=spec,
+                           engine="soa").fingerprint() for s in SEEDS]
+        got = simulate_batch(plans, tasks, 0.06, sched, SEEDS, faults=spec, device="cpu")
+        assert [r.fingerprint() for r in got] == want, spec
+    one = P.simulate(plans, tasks, 0.06, sched, seed=SEEDS[0], engine="batch",
+                     faults=spec, device="cpu")
+    assert one.fingerprint() == want[0]
     # an inactive fault model is the fault-free engine
     got = simulate_batch(plans, tasks, 0.02, sched, [0], faults="none", device="cpu")
     want = P.simulate(plans, tasks, 0.02, sched, seed=0, engine="soa")

@@ -1,8 +1,8 @@
 """The port's trial packers stage the reference's buffers byte for byte.
 
 ``repro_torch.core.scheduler_torch`` copies ``bucket_nj``, ``bucket_ev``,
-``_trial_buffers`` and ``pack_trials`` out of the JAX package's
-``scheduler_jax``.  Importing that module turns on ``jax_enable_x64`` for
+``_trial_buffers``, ``pack_trials`` and ``pack_fault_epochs`` out of the
+JAX package's ``scheduler_jax``.  Importing that module turns on ``jax_enable_x64`` for
 the whole process, so the comparison runs in a subprocess and leaves
 this test worker's jax configuration alone.
 """
@@ -68,6 +68,71 @@ def test_pack_trials_and_buckets_are_byte_equal_to_the_reference():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["OK", "20"]
+
+
+FAULT_SCRIPT = r"""
+import numpy as np
+from repro.core import scheduler_jax as RJ
+from repro.core.faults import make_fault_model as r_fault
+from repro.core.workload import get_scenario as r_scenario
+from repro.costmodel.maestro import PLATFORMS as R_PLATFORMS
+from repro_torch.core import scheduler_torch as PT
+from repro_torch.core.faults import make_fault_model
+from repro_torch.core.workload import get_scenario
+from repro_torch.costmodel.maestro import PLATFORMS
+
+assert PT._FAULT_CODES == RJ._FAULT_CODES
+# (scenario, platform, fault spec or None for the scenario's own, duration,
+# seeds, b_pad): every kind, retighten on and off, pad lanes, NF of 1, 2, 3,
+# 6 and the intermittent timelines' own counts (mostly not powers of two)
+CASES = [
+    ("multicam_heavy", "6k_1ws2os", "down(acc=0,start=0.1,duration=0.2)", 0.35, [0, 1], 4),
+    ("multicam_heavy", "6k_1ws2os",
+     "down(acc=2,start=0.05,duration=0.1,retighten=true)", 0.3, [0, 1, 2], 8),
+    ("multicam_heavy", "6k_1ws2os", "throttle(acc=1,start=0.05,duration=0.3,factor=2.5)",
+     0.2, [0, 1], 4),
+    ("multicam_heavy", "6k_1ws2os", "permanent(acc=1,start=0.15)", 0.25, [0], 4),
+    ("multicam_heavy", "6k_1ws2os", "permanent(acc=0,start=0.1,retighten=true)"
+     "+throttle(acc=1,start=0.05,duration=0.1,factor=2)", 0.3, [0, 1], 4),
+    ("multicam_heavy", "6k_1ws2os", "intermittent(acc=2,rate=8.0,mean_down=0.05)",
+     0.6, list(range(5)), 8),
+    ("multicam_heavy", "6k_1ws2os",
+     "intermittent(acc=1,rate=10.0,mean_down=0.05,retighten=true)", 0.6, [0, 1, 2], 4),
+    ("saturation_3x", "4k_1ws2os", "throttle(acc=0,start=0.01,duration=0.05,factor=3,"
+     "retighten=true)", 0.1, [0, 1], 4),
+]
+for name in ("fault_dropout", "fault_brownout", "fault_flash_crowd"):
+    for plat in get_scenario(name).platform_names:
+        CASES.append((name, plat, None, 2.0, [0, 1, 2], 4))
+checked = 0
+nfs = set()
+for scen, plat, spec, dur, seeds, b_pad in CASES:
+    plans, _ = get_scenario(scen).plans(PLATFORMS[plat])
+    r_plans, _ = r_scenario(scen).plans(R_PLATFORMS[plat])
+    spec = spec or get_scenario(scen).faults
+    lp = max(len(p.model.layers) for p in plans)
+    got, g_nf, g_spans = PT.pack_fault_epochs(make_fault_model(spec), plans, dur, seeds,
+                                              b_pad, lp)
+    want, w_nf, w_spans = RJ.pack_fault_epochs(r_fault(spec), r_plans, dur, seeds, b_pad, lp)
+    assert (g_nf, g_spans) == (w_nf, w_spans), (scen, spec)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        a, b = got[k], np.asarray(want[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, (scen, spec, k)
+        assert a.tobytes() == b.tobytes(), (scen, spec, k)
+        checked += 1
+    nfs.update(int(n) for n in got["n_f"][: len(seeds)])
+assert {1, 2, 3, 6} <= nfs and any(n & (n - 1) for n in nfs), nfs
+print("OK", checked)
+"""
+
+
+def test_pack_fault_epochs_is_byte_equal_to_the_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", FAULT_SCRIPT], env=env, cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["OK", str(9 * 14)]
 
 
 def test_pack_trials_pads_to_buckets():
