@@ -24,18 +24,19 @@ Phases, each on lines of its own; any failure exits non-zero:
    kernel's time at every split the planner weighs.  Decode attention
    (``ref.decode_attention``): at the ``tests/test_kernels.py`` shapes
    and at the serving shapes of llama3.2-1b (B=8, L=2048, H=32, Hkv=8,
-   Dh=64) and gemma-7b (B=8, L=2048, H=16, Hkv=16, Dh=256) with 256 and
-   2048 valid positions, in f32 and bf16, the grid sized from the valid
+   Dh=64), gemma-7b (B=8, L=2048, H=16, Hkv=16, Dh=256) and zamba2-2.7b
+   (B=8, L=2048, H=32, Hkv=32, Dh=80) with 256 and 2048 valid positions, in f32 and bf16, the grid sized from the valid
    length as the serving path sizes it from ``pos + 1``; tolerances: f32
    |d| <= 1e-5 + 1e-4 |ref| (another summation order), bf16 max|d| <=
    2e-2 max|ref| (both versions round the softmax weights to bf16, the
    kernel before normalising them).
    SSD scan (``ref.ssd_chunked``): at the ``tests/test_kernels.py`` shapes
    in f32 and bf16 (x, B, C in the dtype; log_a, dt f32, as the model
-   feeds them), and at the prefill path's shape (Bt=8, L=4096, H=64,
-   P=64, N=128, Q=256) in the model's dtypes and in all-f32; tolerances:
+   feeds them), and at the prefill paths' shapes (mamba2-1.3b: Bt=8,
+   L=4096, H=64, P=64, N=128, Q=256; zamba2-2.7b: H=80, N=64) in the
+   model's dtypes and in all-f32; tolerances:
    f32 max|d| < 1e-5 max|ref| at the test shapes (``tests/test_kernels.py``'s),
-   1e-4 at the prefill shape (the cumsum of 256 log-decays, taken in
+   1e-4 at the prefill shapes (the cumsum of 256 log-decays, taken in
    another order, moves each exp(cum_i - cum_j) by up to ~1e-5
    relative), bf16 output 2e-2 max|ref| (bf16 rounding of y).
    Device times (CUDA-graph replay) of the kernel, the plain version and
@@ -49,19 +50,21 @@ Phases, each on lines of its own; any failure exits non-zero:
    batch row and chunk, not per head, its f32 products at the faster of
    the CUDA cores and split TF32, beside the CUDA-core-only figure of
    earlier runs), and the kernel wrapper's cost per call when launched
-   back to back from Python.  At the prefill shape, the device kernels of
+   back to back from Python.  At the prefill shapes, the device kernels of
    an SSD call (``torch.profiler`` over four calls: must be 2, C Bᵀ and
    the scan, each recorded in three or four of the calls, as the profiler
    may drop a window's first event) and each one's time.  At the serving shapes
    the decode kernel and SDPA are also timed cold (calls taking turns
    over copies of the cache twice the 50 MB L2), and the kernels line
-   takes those; at the serving shape, the device kernels of one decode
-   call (``torch.profiler``: must be 1) and the cold time of every
-   split of the cache (1 to 8 blocks a cluster) beside the planner's;
+   takes those; at llama3.2-1b's and zamba2-2.7b's serving shapes in
+   bf16, the device kernels of a decode call (``torch.profiler`` over four
+   calls: must be 1, recorded in three or four of them) and the cold time
+   of every split of the cache (1 to 8 blocks a cluster) beside the
+   planner's;
 4. main paths, each with its launch count set to 0 just before and read
    just after:
    (i) ``simulate_batch`` on the card for (a) ``multicam_heavy`` @
-   ``6k_1ws2os``, terastal, default arrivals, 8 seeds, 1.0 s and (b)
+   ``6k_1ws2os``, terastal, default arrivals, 8 seeds, 0.3 s and (b)
    ``saturation_5x`` @ ``4k_1ws2os``, terastal, poisson, 32 seeds, 0.1 s;
    then the pointwise variant layers of the models that applied variants
    in (a) run through ``run_pointwise_variants`` (the s2d-conv kernel).
@@ -69,8 +72,9 @@ Phases, each on lines of its own; any failure exits non-zero:
    (a) must apply variants, and the variant outputs must match the plain
    version.  Then one pass of the variant layers under ``torch.profiler``
    (device time, device ops, the kernel's share), and the engine runs
-   cell (b) again under it: the device's busy share of the first run's
-   wall, and device ops per loop iteration;
+   cell (b) again under it, cut to 0.02 s: the device's busy share (device
+   time an iteration over the first run's wall an iteration), and device
+   ops per loop iteration;
    (ii) serving: ``repro_torch.launch.serve`` at the published widths of
    ``llama3.2-1b`` in bf16 (16 layers, d_model 2048, 32 heads over 8 KV
    heads, vocab 128256), batch 8, a 2048-position cache, 256 greedy
@@ -85,8 +89,9 @@ Phases, each on lines of its own; any failure exits non-zero:
    newest position (its valid length one short from step 1 on), whose gap
    to the plain replay is read against the same limit and printed, not
    held.  Then the
-   decode loop runs once more under ``torch.profiler``: the device's busy
-   share of the first run's wall, device ops per step, and the decode
+   first 64 steps of the decode loop run once more under
+   ``torch.profiler``: the device's busy share (device time a step over
+   the first run's wall a step), device ops per step, and the decode
    kernel's share of device time;
    (iii) ssm prefill: after the llama weights are freed, ``serve.load`` of
    ``mamba2-1.3b`` at its published widths in bf16 (48 layers, d_model
@@ -111,13 +116,53 @@ Phases, each on lines of its own; any failure exits non-zero:
    device time);
    (iv) ssm decode: ``serve.decode`` of the same model, B=8, 256 greedy
    tokens: no SSD or decode-attention launch (the recurrent step uses
-   no kernel); ms/token, tokens/s, and under ``torch.profiler`` the busy
-   share and device ops per step.  Then the JAX package's cross-path
+   no kernel); ms/token, tokens/s, and under ``torch.profiler`` over 64
+   steps the busy share (device time a step over the unprofiled run's
+   wall a step) and device ops per step.  Then the JAX package's cross-path
    check (``tests/test_model_consistency.py::test_decode_matches_train_forward``)
    at full width and, as there, in f32: one 512-token prompt (two
    chunks) through ``decode_step`` token by token against
    ``model.prefill`` on the same tokens; the last logits within that
    test's |d| <= 2e-4 + 2e-3 |ref|;
+   (vii) after (iv), once the mamba2 weights are freed: (h) dense
+   prefill, ``serve.load`` of ``llama3.2-1b`` at its published widths in
+   bf16 and ``model.prefill`` on B=8 prompts of 4096 tokens
+   (``prefill_32k`` cut as (iii) is), which launches no kernel of the
+   port (attention is ``flash_attention``, a torch function like the JAX
+   package's ``lax`` one); ms, prompt tokens/s, peak memory, and under
+   ``torch.profiler`` the busy share and attention's share of device time
+   (the ``flash_attention`` calls of a prefill replayed alone), with one
+   call timed beside ``scaled_dot_product_attention`` on the same inputs
+   (a yardstick the port never calls).  In f32 on the same weights: two
+   prompts against a replay through ``naive_attention``, last logits
+   within 1e-4 of max|ref| (summation order only), and ``decode_step``
+   token by token through the decode kernel against ``model.prefill`` on
+   an 1100-token prompt (three query chunks, the last padded, and a
+   padded key chunk) within |d| <= 2e-4 + 2e-3 |ref|.  (i) ``zamba2-2.7b``
+   at its published widths in bf16 (54 Mamba2 blocks, d_model 2560,
+   d_inner 5120, 80 heads of 64, N=64, chunk 256; one shared attention
+   block of 32 heads of 80 at 9 sites; d_ff 10240; vocab 32000), B=8 prompts
+   of 4096: the SSD kernel must run exactly 54 times and nothing else;
+   the bf16 replay with the plain ``ssd_chunked`` is read, and the f32
+   one on two prompts held to 1e-4 of max|ref| and rms|ref| as in (iii);
+   the same readings as (h), the SSD kernel's share too.  (j) its
+   decode: ``serve.decode``, B=8, a 2048-position cache, 256 greedy
+   tokens: the decode kernel must run exactly 9 x 256 times and the SSD
+   kernel not at all.  Then, fed the kernel run's tokens, with the kernel
+   stepped again beside them (its logits printed against the first run's):
+   every step through the plain attention from the kernel run's own state
+   at that step (its KV caches and Mamba states), within (ii)'s limit at
+   every step; over the first 32 steps the plain attention from its own
+   state (a free-running replay, as (ii) replays llama), read against the
+   same limit and not held, since the 54 bf16 Mamba blocks carry the two runs' rounding
+   differences forward in their states and a sound kernel's free-running
+   gap exceeds it (PERF.md section 6); and over the first 16 steps a planted
+   fault (the kernel without the newest position) from the kernel run's
+   state, read against the limit.  ms/token, tokens/s, and under
+   ``torch.profiler`` over 64 steps the device time and device ops per
+   step, the busy share (device time a step over the unprofiled run's wall
+   a step) and the kernel's share; then the f32 decode vs prefill check on
+   a 512-token prompt (two SSD chunks);
    (v) the paper's method (no kernel of the port; the counts must stay
    0): Algorithm 1 (``core/budget_torch``) on the card for every model
    of every catalog scenario on its own platforms, one call each and
@@ -141,15 +186,14 @@ Phases, each on lines of its own; any failure exits non-zero:
    (vi) the fault lane of the batched engine (no kernel of the port; the
    counts must stay 0), through ``Campaign(engine="batch")``, every
    ``TrialResult`` field but ``wall_s`` equal to the host ``soa`` grid's:
-   (f) ``multicam_heavy`` @ ``6k_1ws2os``, edf and terastal, seeds 0-7,
-   0.35 s, under ``down``, ``throttle`` and ``intermittent
-   ...retighten=true`` specs, and the same cell fault-free (terastal);
-   (g) Fig. 10's gate cell, ``fault_dropout`` @ ``6k_1ws2os``, terastal
-   and terastal_no_variants, seeds 0-3, cut from 2.0 s to 0.7 s (the
-   outage opens at 0.5 s).  For each seed group: trials/s, engine
+   (f) ``multicam_heavy`` @ ``6k_1ws2os``, terastal, seeds 0-1 (from
+   0-7), 0.2 s, under ``down``, ``throttle`` and ``intermittent
+   ...retighten=true`` specs on accelerator 1, and the same cell
+   fault-free.  For each seed group: trials/s, engine
    iterations, us an iteration, evictions, re-timings, ghost pops and
    variants undone; the ratio of us an iteration faulted / fault-free;
    device ops an iteration faulted and fault-free (``torch.profiler``);
+   after each phase, the seconds it took and the seconds since the start;
 5. the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -181,25 +225,45 @@ DECODE_SHAPES = [  # (B, L, H, Hkv, Dh, valid): tests/test_kernels.py, then serv
     (2, 64, 8, 2, 16, 64), (1, 128, 4, 4, 32, 81), (3, 256, 16, 8, 64, 256),
     (1, 64, 8, 1, 128, 11), (8, 2048, 32, 8, 64, 256), (8, 2048, 32, 8, 64, 2048),
     (8, 2048, 16, 16, 256, 256), (8, 2048, 16, 16, 256, 2048),  # gemma-7b's heads
+    (8, 2048, 32, 32, 80, 256), (8, 2048, 32, 32, 80, 2048),  # zamba2-2.7b's heads
 ]
-SSD_SHAPES = [  # (Bt, L, H, P, N, Q): tests/test_kernels.py, then the prefill path
+#: (H, Dh) of the serving shapes whose device kernels per call and cold time at
+#: every split are printed: llama3.2-1b's and zamba2-2.7b's
+PLAN_HEADS = ((32, 64), (32, 80))
+SSD_SHAPES = [  # (Bt, L, H, P, N, Q): tests/test_kernels.py, then the prefill paths
     (2, 64, 4, 8, 16, 16), (1, 128, 2, 64, 128, 32), (2, 32, 8, 16, 8, 32),
-    (1, 64, 1, 128, 64, 64), (8, 4096, 64, 64, 128, 256),
+    (1, 64, 1, 128, 64, 64), (8, 4096, 64, 64, 128, 256), (8, 4096, 80, 64, 64, 256),
 ]
+#: the SSD shapes of the prefill paths: mamba2-1.3b's (the kernels line's) and zamba2-2.7b's
+SSD_PATHS = {(8, 4096, 64, 64, 128, 256): "mamba2-1.3b", (8, 4096, 80, 64, 64, 256): "zamba2-2.7b"}
 # SSD scan vs ssd_chunked, max|d| / max|ref|: f32 at the test shapes (test_kernels.py),
 # f32 at the prefill shape (cumsum of 256 log-decays in another order), bf16 output
 SSD_TOL = {"float32": 1e-5, "float32@prefill": 1e-4, "bfloat16": 2e-2}
-SERVE = dict(arch="llama3.2-1b", batch=8, ctx=2048, tokens=256)
+SERVE = dict(arch="llama3.2-1b", batch=8, ctx=2048, tokens=256, profile_tokens=64)
 # logits, kernel run vs plain replay, at every step: rms|d| <= 5e-2 rms|ref| and
 # max|d| <= 0.1 max|ref|.  The two runs differ by bf16 rounding of the softmax
 # weights, which compounds over 16 layers and over the steps' cached keys and
 # values.  A planted fault (the kernel without the newest position) is replayed
 # beside it and read against the same limit, as a reading: it does not fail the run.
 SERVE_TOL = dict(rms=5e-2, max=0.1)
-SSM = dict(arch="mamba2-1.3b", batch=8, prompt=4096, tokens=256, check_prompt=512)
+SSM = dict(arch="mamba2-1.3b", batch=8, prompt=4096, tokens=256, check_prompt=512,
+           profile_tokens=64)
 # last-position logits, f32 kernel prefill vs the plain-ssd_chunked replay (see
 # docstring)
 PREFILL_F32_TOL = dict(rms=1e-4, max=1e-4)
+# (vii) dense prefill: llama3.2-1b at its published widths, B=8 prompts of 4096
+# (prefill_32k cut as cell (d) is); its f32 checks: two prompts against a replay
+# through naive_attention, and decode vs prefill on an 1100-token prompt (three
+# query chunks of 512, the last padded, and a padded second key chunk of 1024)
+DENSE = dict(arch="llama3.2-1b", batch=8, prompt=4096, check_prompt=1100)
+# last logits, f32 flash-attention prefill vs the naive_attention replay: the two
+# differ only in summation order
+DENSE_F32_TOL = 1e-4
+# (vii) zamba2-2.7b at its published widths: prefill as DENSE; decode as SERVE
+# (B=8, a 2048-position cache, 256 greedy tokens); the f32 decode vs prefill
+# check on 512 tokens (two SSD chunks)
+HYBRID = dict(arch="zamba2-2.7b", batch=8, prompt=4096, ctx=2048, tokens=256,
+              check_prompt=512, fault_steps=16, free_steps=32, profile_tokens=64)
 # (v) the paper's method.  Budgets vs numpy: tests/test_budget.py's rtol (the
 # card sums the reference total in another order than numpy).
 BUDGET_RTOL = 1e-5
@@ -208,37 +272,40 @@ SCHEDULERS = ("fcfs", "edf", "dream", "terastal")
 # every block round of this trial on the device round; 0.3 s is the shortest
 # duration whose ready queue reaches the NJ-64 bucket (it peaks at 145)
 ROUND_CELL = dict(scenario="saturation_5x", platform="4k_1ws2os", duration=0.3)
-# PERF.md section 4's cells (a) and (b), 4 schedulers x seeds 0-7 each: (a) at
-# 0.1 s (~4,000 engine iterations in all), (b) cut to 0.02 s (~6,600; at 0.1 s
-# ~13,000), so that the host-paced engine (3-10 ms an iteration) fits
+# PERF.md section 4's cells (a) and (b), 4 schedulers x seeds 0-7 each, cut
+# from 0.1 s: (a) to 0.05 s (40 variants applied), (b) to 0.01 s (~13,000
+# engine iterations at 0.1 s), so that the host-paced engine (5-10 ms an
+# iteration) fits
 CAMPAIGN_CELLS = [
-    ("a", "multicam_heavy", "6k_1ws2os", "periodic", 0.1),
-    ("b", "saturation_5x", "4k_1ws2os", "poisson", 0.02),
+    ("a", "multicam_heavy", "6k_1ws2os", "periodic", 0.05),
+    ("b", "saturation_5x", "4k_1ws2os", "poisson", 0.01),
 ]
 ADAPTIVE_CELL = ("a", "multicam_heavy", "6k_1ws2os", "poisson", 0.02)
+# phase (i)'s profiled rerun of cell (b), cut from its 0.1 s
+WHERE_B_DURATION = 0.02
 # (vi) the fault lane.  (f): PERF.md section 4's cell (a), default arrivals,
-# under three restart-policy fault specs whose windows open inside 0.35 s (the
-# down and throttle windows also close there); (g): Fig. 10's gate cell
-# (benchmarks/fig10_fault_tolerance.py GATE_CELL, GATE_SCHEDULERS), its 2.0 s
-# horizon cut to 0.7 s: the outage [0.5, 1.5) opens inside it and is still open
-# at its end.  Both cut in seeds (from 8 and 4; the phase took 413 s with
-# them, PERF.md section 6): the host-bound engine's time is its iterations,
-# and each group of seeds is one host loop
+# terastal, under three restart-policy fault specs on accelerator 1 whose
+# windows open inside 0.2 s (the down and throttle windows also close there;
+# every spec evicts or re-times a running layer on both seeds, in the host
+# soa engine too).  The host-bound engine's time is its iterations, and each
+# group of seeds is one host loop, so the cuts are of horizon and of groups:
+# from 8 seeds, edf and terastal at 0.35 s (where edf was needed for an
+# eviction on accelerator 0).  Fig. 10's gate cell (fault_dropout, whose
+# outage opens at 0.5 s, so no shorter horizon reaches it) is left to the
+# tests (tests/test_torch_campaign.py): at 56 s a group it did not fit the
+# run's time limit.  The phase took 413 s uncut, 309 s at 0.35 s with that
+# cell (PERF.md section 6)
 FAULT_SPECS = (
-    "down(acc=0,start=0.1,duration=0.2)",
-    "throttle(acc=1,start=0.05,duration=0.3,factor=2.5)",
-    "intermittent(acc=1,rate=10.0,mean_down=0.05,retighten=true)",
+    "down(acc=1,start=0.05,duration=0.1)",
+    "throttle(acc=1,start=0.05,duration=0.1,factor=2.5)",
+    "intermittent(acc=1,rate=20.0,mean_down=0.02,retighten=true)",
 )
 FAULT_CELLS = [
     dict(label="f", scenario="multicam_heavy", platform="6k_1ws2os", faults=FAULT_SPECS,
-         schedulers=("edf", "terastal"), seeds=4, seeds_from=8, duration=0.35),
+         schedulers=("terastal",), seeds=2, seeds_from=8, duration=0.2,
+         cut="terastal alone (from edf and terastal), duration {duration} s (from 0.35 s)"),
     dict(label="f, fault-free", scenario="multicam_heavy", platform="6k_1ws2os",
-         faults=("none",), schedulers=("terastal",), seeds=4, seeds_from=8, duration=0.35),
-    dict(label="g", scenario="fault_dropout", platform="6k_1ws2os", faults=("scenario",),
-         schedulers=("terastal", "terastal_no_variants"), seeds=2, seeds_from=4,
-         duration=0.7,
-         cut="duration {duration} s (from 2.0 s, benchmarks/fig10_fault_tolerance.py "
-             "DURATION): the outage [0.5, 1.5) opens at 0.5 s and is still open at the end"),
+         faults=("none",), schedulers=("terastal",), seeds=2, seeds_from=8, duration=0.2),
 ]
 # device ops an iteration, faulted against fault-free: (f)'s terastal cell
 # under torch.profiler.  The lane is a static branch whose every op runs each
@@ -257,6 +324,16 @@ def fail(msg):
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+_CLOCK = [0.0, 0.0]  # start of the run, end of the last phase
+
+
+def phase_done(label):
+    """Print the seconds ``label`` took and the seconds since the start."""
+    now = time.perf_counter()
+    say(f"[time] {label} took {now - _CLOCK[1]:.1f} s; {now - _CLOCK[0]:.1f} s since the start")
+    _CLOCK[1] = now
 
 
 def paced_ms(torch, fn, reps=50, warm=5):
@@ -763,7 +840,430 @@ def fault_lane(torch, report):
         say(f"[faults] device ops an iteration faulted / fault-free: {out['ops_ratio']:.3f}")
 
 
+def _prefill_where(torch, model, params, batch_in):
+    """A timed prefill (ms, peak memory), then one under torch.profiler that
+    keeps every flash_attention call's inputs, then those calls alone under
+    it, and the first call's inputs timed through flash_attention and
+    through ``scaled_dot_product_attention`` (the yardstick of a later
+    attention kernel; the port never calls it)."""
+    from repro_torch.models import transformer
+
+    flash = transformer.flash_attention
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, batch_in)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    calls = []
+
+    def keep(q, k, v, **kw):
+        calls.append((q, k, v, kw))
+        return flash(q, k, v, **kw)
+
+    transformer.flash_attention = keep
+    try:
+        dev = device_activity(torch, lambda: model.prefill(params, batch_in))
+    finally:
+        transformer.flash_attention = flash
+    attn = device_activity(torch, lambda: [flash(q, k, v, **kw) for q, k, v, kw in calls])
+    q, k, v, kw = calls[0]
+    shape = [list(t.shape) for t in (q, k, v)]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flash_ms = event_ms(torch, lambda: flash(q, k, v, **kw))
+    sdpa_ms = event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    sites = len(calls)
+    del calls, q, k, v, qt, kt, vt
+    dev_ms = sum(ms for _, ms in dev.values())
+    n_dev = sum(n for n, _ in dev.values())
+    attn_ms = sum(ms for _, ms in attn.values())
+    ssd_ms = sum(ms for name, (_, ms) in dev.items() if "ssd_scan" in name)
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:6]
+    B, L = batch_in["tokens"].shape
+    return dict(
+        wall_s=wall, ms_per_prefill=wall * 1e3, prompt_tokens_per_s=B * L / wall,
+        peak_mem_gb=peak, device_ms=dev_ms, device_ops=n_dev,
+        device_busy_share=dev_ms / (wall * 1e3) if n_dev else None,
+        ssd_scan_ms=ssd_ms, ssd_scan_share=ssd_ms / dev_ms if n_dev else None,
+        attention_sites=sites, attention_ms=attn_ms,
+        attention_share=attn_ms / dev_ms if n_dev else None,
+        attention_qkv_shapes=shape,
+        flash_ms_per_call=flash_ms, sdpa_ms_per_call=sdpa_ms,
+        top_device=[dict(name=k, ops=n, ms=ms) for k, (n, ms) in top],
+    )
+
+
+def _say_where(label, line):
+    if line["device_ops"]:
+        say(f"[where] {label}: device busy {{device_ms:.3f}} ms = {{device_busy_share:.4f}} of the "
+            "wall; {device_ops} device ops; ssd_scan {ssd_scan_ms:.3f} ms = {ssd_scan_share:.4f} "
+            "of device time; attention ({attention_sites} flash_attention calls, replayed alone) "
+            "{attention_ms:.3f} ms = {attention_share:.4f} of device time; one call "
+            "{flash_ms_per_call:.3f} ms, scaled_dot_product_attention on the same inputs "
+            "{sdpa_ms_per_call:.3f} ms".format(**line))
+        for d in line["top_device"]:
+            say(f"[where]   {d['ms']:.3f} ms in {d['ops']} x {d['name'][:100]}")
+    else:
+        say(f"[where] {label}: device time not measured "
+            "(torch.profiler recorded no device activity)")
+
+
+def _kernels():
+    """The launch-counted wrappers of the three kernels."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.s2d_conv.kernel import s2d_conv_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+    return dict(s2d_conv=s2d_conv_cuda, decode_attn=decode_attn_cuda, ssd_scan=ssd_scan_cuda)
+
+
+def _zero_counts(torch):
+    for k in _kernels().values():
+        k.launches = 0
+    torch.cuda.synchronize()
+
+
+def _counts():
+    return {name: k.launches for name, k in _kernels().items()}
+
+
+def _with_patch(mod, name, fn, call):
+    """``call()`` with ``mod.name`` replaced by ``fn``."""
+    kept = getattr(mod, name)
+    setattr(mod, name, fn)
+    try:
+        return call()
+    finally:
+        setattr(mod, name, kept)
+
+
+def _f32_twin(torch, cfg):
+    """The model in f32 with the weights of the same seed (the bf16 weights
+    before their rounding)."""
+    from repro_torch.models.model_api import build_model
+
+    m = build_model(dataclasses.replace(cfg, dtype="float32"), "cuda")
+    return m, m.init(torch.Generator(device="cuda").manual_seed(0))
+
+
+def _cross_path(torch, m, p, prompt, seed):
+    """The JAX package's cross-path check: ``prompt`` tokens through
+    decode_step one by one against prefill; (max rel, rms rel, excess over
+    rtol |ref|, decode-kernel launches)."""
+    dec = _kernels()["decode_attn"]
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, m.cfg.vocab_size, (1, prompt), dtype=np.int64)).cuda()
+    pre = m.prefill(p, {"tokens": toks})
+    before = dec.launches
+    cache = m.init_cache(1, prompt)
+    for i in range(prompt):
+        step, cache = m.decode_step(p, toks[:, i], cache, i)
+    if not bool(torch.isfinite(step).all()):
+        fail(f"{m.cfg.name} f32 decode produced non-finite logits")
+    c_max, c_rms, _ = logits_gap(step, pre)
+    excess = ((step - pre).abs() - CROSS_TOL["rtol"] * pre.abs()).max().item()
+    return c_max, c_rms, excess, dec.launches - before
+
+
+def dense_prefill(torch, report):
+    """Phase (vii) (h): llama3.2-1b prefill at its published widths, with
+    the kernel counts set to 0 just before it and read just after."""
+    from repro_torch.launch import serve
+    from repro_torch.models import common, transformer
+
+    def naive(q, k, v, causal=True, q_chunk=None, k_chunk=None):
+        return common.naive_attention(q, k, v, causal=causal)
+
+    arch, Bp, Lp = DENSE["arch"], DENSE["batch"], DENSE["prompt"]
+    model, params = serve.load(arch, reduced=False, device="cuda", seed=0)
+    cfg = model.cfg
+    if (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_ff,
+            cfg.vocab_size, cfg.attn_q_chunk, cfg.attn_k_chunk, cfg.dtype) != (
+            16, 2048, 32, 8, 64, 8192, 128256, 512, 1024, "bfloat16"):
+        fail(f"{arch} is not at its published widths: {cfg}")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (Bp, Lp), dtype=np.int64)).cuda()
+    batch_in = {"tokens": toks}
+    _zero_counts(torch)
+    t0 = time.perf_counter()
+    logits = model.prefill(params, batch_in)
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    c = _counts()
+    say(f"[dense] counts read after the dense prefill path: {c} (no kernel of the port: "
+        "attention is flash_attention, the products torch.matmul)")
+    if any(c.values()):
+        fail(f"the dense prefill path launched kernels of the port: {c}")
+    if tuple(logits.shape) != (Bp, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail(f"dense prefill returned {tuple(logits.shape)} logits, or non-finite ones")
+    line = _prefill_where(torch, model, params, batch_in)
+    del model, params, logits
+    torch.cuda.empty_cache()
+    # f32 on the same weights: two prompts against a replay through naive_attention
+    f32_model, f32_params = _f32_twin(torch, cfg)
+    f32_in = {"tokens": toks[:2]}
+    ref = _with_patch(transformer, "flash_attention", naive,
+                      lambda: f32_model.prefill(f32_params, f32_in))
+    d_max, d_rms, _ = logits_gap(f32_model.prefill(f32_params, f32_in), ref)
+    del ref
+    c_max, c_rms, c_excess, c_launch = _cross_path(torch, f32_model, f32_params,
+                                                   DENSE["check_prompt"], 4)
+    del f32_model, f32_params
+    torch.cuda.empty_cache()
+    line.update(arch=arch, batch=Bp, prompt=Lp, dtype=cfg.dtype, first_wall_s=first_wall,
+                launches=c, f32_logits_max_rel=d_max, f32_logits_rms_rel=d_rms,
+                cross_prompt=DENSE["check_prompt"], cross_max_rel=c_max, cross_rms_rel=c_rms,
+                cross_max_excess=c_excess, cross_decode_attn_launches=c_launch)
+    report["dense_prefill"] = line
+    say("[dense] {arch} {dtype} B={batch} L={prompt}: first={first_wall_s:.3f} s "
+        "ms/prefill={ms_per_prefill:.3f} prompt tokens/s={prompt_tokens_per_s:.1f} "
+        "peak={peak_mem_gb:.2f} GB; f32 vs the naive_attention replay: max|d|/max|ref| "
+        "{f32_logits_max_rel:.3e}, rms|d|/rms|ref| {f32_logits_rms_rel:.3e}; f32 decode vs "
+        "prefill of a {cross_prompt}-token prompt ({cross_decode_attn_launches} decode_attn "
+        "launches): max|d|/max|ref| {cross_max_rel:.4e}, rms|d|/rms|ref| {cross_rms_rel:.4e}, "
+        "max(|d| - rtol |ref|) {cross_max_excess:.3e}".format(**line))
+    _say_where("dense prefill", line)
+    if d_max > DENSE_F32_TOL:
+        fail(f"f32 dense prefill logits vs the naive_attention replay: max|d|/max|ref| "
+             f"{d_max:.3e} > {DENSE_F32_TOL}")
+    if c_launch != cfg.n_layers * DENSE["check_prompt"]:
+        fail(f"the dense decode check launched the decode kernel {c_launch} times")
+    if c_excess > CROSS_TOL["atol"]:
+        fail(f"f32 dense decode vs prefill of a {DENSE['check_prompt']}-token prompt: |d| "
+             f"exceeds {CROSS_TOL['atol']} + {CROSS_TOL['rtol']} |ref| by {c_excess:.3e}")
+
+
+def hybrid(torch, report):
+    """Phase (vii) (i) and (j): zamba2-2.7b prefill and decode at its
+    published widths, each with the kernel counts set to 0 just before it
+    and read just after."""
+    from repro_torch.kernels.decode_attn import kernel as dec_kernel
+    from repro_torch.kernels.decode_attn.ref import decode_attention
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.launch import serve
+    from repro_torch.models import mamba2, transformer
+
+    def plain_scan(x, la, B, C, dt, chunk):
+        return ssd_chunked(x, la, B, C, dt, chunk)
+
+    # (i) prefill, bf16
+    arch, Bp, Lp = HYBRID["arch"], HYBRID["batch"], HYBRID["prompt"]
+    t0 = time.perf_counter()
+    model, params = serve.load(arch, reduced=False, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg = model.cfg
+    if (cfg.family, cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_nheads, cfg.ssm_headdim,
+            cfg.ssm_state, cfg.ssm_chunk, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.d_ff, cfg.vocab_size, cfg.hybrid_attn_every, cfg.tie_embeddings, cfg.dtype) != (
+            "hybrid", 54, 2560, 5120, 80, 64, 64, 256, 32, 32, 80, 10240, 32000, 6, True,
+            "bfloat16"):
+        fail(f"{arch} is not at its published widths: {cfg}")
+    sites = cfg.n_layers // cfg.hybrid_attn_every
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (Bp, Lp), dtype=np.int64)).cuda()
+    batch_in = {"tokens": toks}
+    _zero_counts(torch)
+    t0 = time.perf_counter()
+    logits = model.prefill(params, batch_in)
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    c = _counts()
+    say(f"[hybrid] counts read after the zamba2 prefill path: {c}")
+    if c != dict(s2d_conv=0, decode_attn=0, ssd_scan=cfg.n_layers):
+        fail(f"the zamba2 prefill path launched {c}, not ssd_scan x {cfg.n_layers} alone")
+    if tuple(logits.shape) != (Bp, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail(f"zamba2 prefill returned {tuple(logits.shape)} logits, or non-finite ones")
+    # bf16: read against the plain-ssd_chunked replay, not held (as in phase (iii))
+    ref = _with_patch(mamba2, "ssd_scan", plain_scan, lambda: model.prefill(params, batch_in))
+    b_max, b_rms, b_agree = logits_gap(logits, ref)
+    del ref, logits
+    line = _prefill_where(torch, model, params, batch_in)
+    # f32 on the same weights, two prompts: the kernel within the limit of the
+    # plain replay (the model kept for the decode check of (j))
+    f32_model, f32_params = _f32_twin(torch, cfg)
+    f32_in = {"tokens": toks[:2]}
+    ref = _with_patch(mamba2, "ssd_scan", plain_scan,
+                      lambda: f32_model.prefill(f32_params, f32_in))
+    f_max, f_rms, _ = logits_gap(f32_model.prefill(f32_params, f32_in), ref)
+    del ref
+    line.update(arch=arch, batch=Bp, prompt=Lp, dtype=cfg.dtype, load_s=load_s,
+                first_wall_s=first_wall, launches=c, logits_max_rel=b_max, logits_rms_rel=b_rms,
+                argmax_agree=b_agree, f32_logits_max_rel=f_max, f32_logits_rms_rel=f_rms)
+    report["hybrid_prefill"] = line
+    say("[hybrid] {arch} {dtype} B={batch} L={prompt}: load={load_s:.2f} s "
+        "first={first_wall_s:.3f} s ms/prefill={ms_per_prefill:.3f} prompt tokens/s="
+        "{prompt_tokens_per_s:.1f} peak={peak_mem_gb:.2f} GB; plain-ssd replay: bf16 "
+        "max|d|/max|ref| {logits_max_rel:.4e}, rms|d|/rms|ref| {logits_rms_rel:.4e}, argmax "
+        "agrees {argmax_agree:.4f} (read); f32 max {f32_logits_max_rel:.3e}, rms "
+        "{f32_logits_rms_rel:.3e}".format(**line))
+    _say_where("zamba2 prefill", line)
+    if not (f_max <= PREFILL_F32_TOL["max"] and f_rms <= PREFILL_F32_TOL["rms"]):
+        fail(f"f32 zamba2 prefill logits vs the plain replay: max|d|/max|ref| {f_max:.3e}, "
+             f"rms|d|/rms|ref| {f_rms:.3e} (limits {PREFILL_F32_TOL})")
+
+    # (j) decode, bf16, through serve.decode
+    batch, ctx, n_tok = HYBRID["batch"], HYBRID["ctx"], HYBRID["tokens"]
+    kept = []
+    decode_step = model.decode_step
+
+    def keep_logits(p, t, cache, pos):
+        out, cache = decode_step(p, t, cache, pos)
+        kept.append(out)
+        return out, cache
+
+    model.decode_step = keep_logits
+    _zero_counts(torch)
+    t0 = time.perf_counter()
+    seq = serve.decode(model, params, tokens=n_tok, batch=batch, ctx=ctx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    model.decode_step = decode_step
+    c = _counts()
+    say(f"[hybrid] counts read after the zamba2 decode path: {c}")
+    if c != dict(s2d_conv=0, decode_attn=sites * n_tok, ssd_scan=0):
+        fail(f"the zamba2 decode path launched {c}, not decode_attn x {sites} x {n_tok} alone")
+    if tuple(seq.shape) != (batch, n_tok) or len(kept) != n_tok:
+        fail(f"zamba2 serve returned {tuple(seq.shape)} ids and {len(kept)} logits")
+    if not bool(((seq >= 0) & (seq < cfg.vocab_size)).all()):
+        fail("zamba2 serve returned ids outside the vocabulary")
+    if not all(bool(torch.isfinite(lg).all()) for lg in kept):
+        fail("zamba2 serve produced non-finite logits")
+
+    # checks (after the counts were read), fed the kernel run's tokens, the
+    # kernel stepped again beside them from its own state: (1) each step through
+    # the plain attention from the kernel run's state at that step, held to the
+    # serving limit; (2) the plain attention from its own state (free-running, as
+    # phase (ii) replays llama) over the first steps, read against the same
+    # limit: the 54 bf16 Mamba blocks carry the two runs' rounding differences
+    # from step to step in their states; (3) over the first steps, a planted
+    # fault (the kernel without the newest position) from the kernel run's
+    # state, read
+    def plain_attention(q, k, v, pos, valid_len=None):
+        return decode_attention(q, k, v, pos)
+
+    def fault_attention(q, k, v, pos, valid_len=None):
+        vl = torch.full((q.shape[0],), pos, dtype=torch.int32, device=q.device).clamp(min=1)
+        return dec_kernel.decode_attn_cuda(q[:, 0], k, v, vl, bound=pos + 1)[:, None]
+
+    def step_with(attention, cache, i):
+        return _with_patch(transformer, "gqa_decode_attention", attention,
+                           lambda: model.decode_step(params, tok, cache, i))
+
+    def gap(got, ref):
+        d = got - ref
+        return torch.stack([d.abs().max(), ref.abs().max(), d.pow(2).mean().sqrt(),
+                            ref.pow(2).mean().sqrt()])
+
+    forced, free, fault, rerun, agree = [], [], [], [], 0
+    cache = model.init_cache(batch, ctx)
+    free_cache = model.init_cache(batch, ctx)
+    tok = torch.zeros((batch,), dtype=torch.int32, device="cuda")
+    for i in range(n_tok):
+        before = {k: v.clone() for k, v in cache.items()}
+        if i < HYBRID["fault_steps"]:
+            bad, _ = step_with(fault_attention, {k: v.clone() for k, v in before.items()}, i)
+        got, cache = model.decode_step(params, tok, cache, i)
+        ref, _ = step_with(plain_attention, before, i)
+        forced.append(gap(got, ref))
+        if i < HYBRID["fault_steps"]:
+            fault.append(gap(bad, ref))
+        rerun.append((got - kept[i]).abs().max())
+        if i < HYBRID["free_steps"]:
+            ref, free_cache = step_with(plain_attention, free_cache, i)
+            free.append(gap(kept[i], ref))
+            agree += int((ref.argmax(-1) == seq[:, i]).sum())
+        tok = seq[:, i]
+    del cache, free_cache, before, kept
+
+    def rel(stats):
+        d_max, r_max, d_rms, r_rms = torch.stack(stats).cpu().numpy().T
+        return d_max / r_max, d_rms / r_rms
+
+    f_max, f_rms = rel(forced)
+    fr_max, fr_rms = rel(free)
+    fa_max, fa_rms = rel(fault)
+    fault_inside = bool((fa_max <= SERVE_TOL["max"]).all() and (fa_rms <= SERVE_TOL["rms"]).all())
+    n_prof = HYBRID["profile_tokens"]
+    dev = device_activity(torch, lambda: serve.decode(model, params, tokens=n_prof, batch=batch,
+                                                      ctx=ctx))
+    dev_ms = sum(ms for _, ms in dev.values())
+    n_dev = sum(n for n, _ in dev.values())
+    dec_ms = sum(ms for name, (_, ms) in dev.items() if "decode_attn" in name)
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:6]
+    del model, params
+    torch.cuda.empty_cache()
+    c_max, c_rms, c_excess, c_launch = _cross_path(torch, f32_model, f32_params,
+                                                   HYBRID["check_prompt"], 6)
+    del f32_model, f32_params
+    torch.cuda.empty_cache()
+    report["hybrid_decode"] = line = dict(
+        arch=arch, batch=batch, ctx=ctx, tokens=n_tok, dtype=cfg.dtype, sites=sites, wall_s=wall,
+        ms_per_token=wall / n_tok * 1e3, tokens_per_s=batch * n_tok / wall, launches=c,
+        worst_max_rel=float(f_max.max()), worst_max_rel_step=int(np.argmax(f_max)),
+        worst_rms_rel=float(f_rms.max()), worst_rms_rel_step=int(np.argmax(f_rms)),
+        median_rms_rel=float(np.median(f_rms)),
+        free_worst_max_rel=float(fr_max.max()), free_worst_rms_rel=float(fr_rms.max()),
+        free_median_max_rel=float(np.median(fr_max)),
+        free_median_rms_rel=float(np.median(fr_rms)), free_steps=len(free),
+        free_argmax_agree=agree / (batch * len(free)),
+        fault_steps=len(fault), fault_worst_max_rel=float(fa_max.max()),
+        fault_worst_rms_rel=float(fa_rms.max()), fault_median_max_rel=float(np.median(fa_max)),
+        fault_median_rms_rel=float(np.median(fa_rms)), fault_inside_limit=fault_inside,
+        rerun_max_abs_diff=float(torch.stack(rerun).max().item()),
+        profiled_tokens=n_prof, device_ms_per_step=dev_ms / n_prof,
+        device_ops_per_step=n_dev / n_prof,
+        device_busy_share=dev_ms / n_prof / (wall / n_tok * 1e3) if n_dev else None,
+        decode_attn_share=dec_ms / dev_ms if n_dev else None,
+        top_device=[dict(name=k, ops=n, ms=ms) for k, (n, ms) in top],
+        cross_prompt=HYBRID["check_prompt"], cross_max_rel=c_max, cross_rms_rel=c_rms,
+        cross_max_excess=c_excess, cross_decode_attn_launches=c_launch,
+    )
+    say("[hybrid] {arch} {dtype} decode B={batch} ctx={ctx} {tokens} tokens: wall={wall_s:.3f} s "
+        "ms/token={ms_per_token:.3f} tokens/s={tokens_per_s:.1f}; each step through the plain "
+        "attention from the kernel run's state: worst max|d|/max|ref| {worst_max_rel:.4f} (step "
+        "{worst_max_rel_step}), rms|d|/rms|ref| {worst_rms_rel:.4f} (step {worst_rms_rel_step}, "
+        "median {median_rms_rel:.4f}); the kernel stepped again: max|d| {rerun_max_abs_diff:.3e}; "
+        "free-running plain replay over the first {free_steps} steps (read): worst max "
+        "{free_worst_max_rel:.4f} (median {free_median_max_rel:.4f}), rms {free_worst_rms_rel:.4f} "
+        "(median {free_median_rms_rel:.4f}), argmax agrees {free_argmax_agree:.4f}".format(**line))
+    say("[hybrid] planted fault (the kernel without the newest position) over the first "
+        "{fault_steps} steps, from the kernel run's state: worst max|d|/max|ref| "
+        "{fault_worst_max_rel:.4f} (median {fault_median_max_rel:.4f}), rms|d|/rms|ref| "
+        "{fault_worst_rms_rel:.4f} (median {fault_median_rms_rel:.4f}); limits max {tol_max}, rms "
+        "{tol_rms}: the fault reads {where} the limit".format(
+            tol_max=SERVE_TOL["max"], tol_rms=SERVE_TOL["rms"],
+            where="inside" if fault_inside else "outside", **line))
+    say("[hybrid] f32 decode vs prefill of a {cross_prompt}-token prompt "
+        "({cross_decode_attn_launches} decode_attn launches): max|d|/max|ref| {cross_max_rel:.4e}, "
+        "rms|d|/rms|ref| {cross_rms_rel:.4e}, max(|d| - rtol |ref|) {cross_max_excess:.3e}"
+        .format(**line))
+    if n_dev:
+        say("[where] zamba2 decode ({profiled_tokens} steps profiled): device {device_ms_per_step:.3f} "
+            "ms a step = {device_busy_share:.4f} of the unprofiled wall a step; "
+            "{device_ops_per_step:.1f} device ops a step; decode_attn {decode_attn_share:.4f} of "
+            "device time".format(**line))
+        for d in line["top_device"]:
+            say(f"[where]   {d['ms']:.3f} ms in {d['ops']} x {d['name'][:100]}")
+    else:
+        say("[where] zamba2 decode: device time not measured "
+            "(torch.profiler recorded no device activity)")
+    for name, r in (("max", f_max), ("rms", f_rms)):
+        if not (r <= SERVE_TOL[name]).all():
+            i = int(np.argmax(r))
+            fail(f"zamba2 serve step {i} from the kernel run's state: logits {name}|d| = "
+                 f"{r[i]:.4f} of {name}|ref| > {SERVE_TOL[name]}")
+    if c_launch != sites * HYBRID["check_prompt"]:
+        fail(f"the zamba2 decode check launched the decode kernel {c_launch} times")
+    if c_excess > CROSS_TOL["atol"]:
+        fail(f"f32 zamba2 decode vs prefill of a {HYBRID['check_prompt']}-token prompt: |d| "
+             f"exceeds {CROSS_TOL['atol']} + {CROSS_TOL['rtol']} |ref| by {c_excess:.3e}")
+
+
 def main():
+    _CLOCK[:] = [time.perf_counter()] * 2
     import torch
 
     if not torch.cuda.is_available():
@@ -791,7 +1291,6 @@ def main():
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
     from repro_torch.launch import serve
     from repro_torch.models import mamba2, transformer
-    from repro_torch.models.model_api import build_model
 
     # the plain version and the library yardstick compute in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -832,6 +1331,7 @@ def main():
         lib, build_s = built[name]
         say(f"[build] {name} {lib.name} built and loaded in {build_s:.2f} s")
         report["build_s"][name] = build_s
+    phase_done("build")
 
     # ---- 3. kernel against its plain version --------------------------------
     mc_plans, _ = SCENARIOS["multicam_heavy"].plans(PLATFORMS["6k_1ws2os"])
@@ -959,23 +1459,27 @@ def main():
                 row["cold_ms"] = cold_graph_ms(torch, [
                     lambda kc=kc, vc=vc: dec_kernel.decode_attn_cuda(q3, kc, vc, vl, bound=valid)
                     for kc, vc in copies])
-                if (H, Dh, dn) == (32, 64, "bfloat16"):
-                    # llama3.2-1b's heads: the device kernels of one call, and
-                    # the cold time of every split beside the planner's
-                    dev = device_activity(torch, lambda: dec_kernel.decode_attn_cuda(
-                        q3, k, v, vl, bound=valid))
-                    row["device_kernels_per_call"] = sum(n for n, _ in dev.values())
+                if dn == "bfloat16" and (H, Dh) in PLAN_HEADS:
+                    # llama3.2-1b's and zamba2-2.7b's heads: the device kernels of
+                    # one call, and the cold time of every split beside the planner's
+                    # over four calls: the profiler may drop a window's first
+                    # events, so the one kernel must be recorded in three or four
+                    calls = 4
+                    dev = device_activity(torch, lambda: [dec_kernel.decode_attn_cuda(
+                        q3, k, v, vl, bound=valid) for _ in range(calls)])
+                    row["device_kernels_per_call"] = len(dev)
+                    row["device_launches_recorded"] = sum(n for n, _ in dev.values())
                     row["cold_ms_by_splits"] = {S: cold_graph_ms(torch, [
                         lambda kc=kc, vc=vc, S=S: dec_kernel.decode_attn_cuda(q3, kc, vc, vl,
                                                                                 splits=S)
                         for kc, vc in copies]) for S in range(1, dec_kernel.MAX_SPLIT + 1)}
                     say(f"[plan] decode_attn {row['shape']} valid={valid} {dn}: device kernels "
-                        f"per call {row['device_kernels_per_call']} ({sorted(dev)}); planner "
+                        f"per call {row['device_kernels_per_call']} ({sorted(dev)}, recorded in "
+                        f"{row['device_launches_recorded']} of {calls} calls); planner "
                         f"splits {row['splits']}; cold ms by splits "
                         + " ".join(f"{S}:{ms:.5f}" for S, ms in row["cold_ms_by_splits"].items()))
-                    if row["device_kernels_per_call"] != 1:
-                        fail(f"one decode_attn call ran {row['device_kernels_per_call']} device "
-                             "kernels, not 1")
+                    if len(dev) != 1 or not calls - 1 <= row["device_launches_recorded"] <= calls:
+                        fail(f"{calls} decode_attn calls ran device kernels {dev}, not 1 a call")
                 copies = [(kc[:, :valid].transpose(1, 2).contiguous(),
                            vc[:, :valid].transpose(1, 2).contiguous()) for kc, vc in copies]
                 row["library_cold_ms"] = cold_graph_ms(torch, [
@@ -1001,7 +1505,7 @@ def main():
 
     ssd_rows = []
     for Bt, L, H, Pd, N, Q in SSD_SHAPES:
-        prefill_shape = (Bt, L) == (SSM["batch"], SSM["prompt"])
+        prefill_shape = (Bt, L, H, Pd, N, Q) in SSD_PATHS
         f32 = np.float32
         x32, la, B32, C32, dt = (torch.from_numpy(np.ascontiguousarray(a, dtype=f32)).cuda() for a in (
             rng.standard_normal((Bt, L, H, Pd), dtype=f32),
@@ -1055,7 +1559,7 @@ def main():
             row["bound_ms"], row["bound_by"] = bound(row["t_bytes_ms"], row["t_ops_ms"])
             row["cuda_core_bound_ms"] = max(
                 row["t_bytes_ms"], (ops_cb / PEAK[dn] + ops_f32 / PEAK["float32"]) * 1e3)
-            row["main_path"] = prefill_shape
+            row["path"] = SSD_PATHS.get((Bt, L, H, Pd, N, Q))
             ssd_rows.append(row)
             say("[kernel] ssd_scan {shape} {dtype} max_abs_err={max_abs_err:.3e} tol={tol:.3e} "
                 "kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms=None "
@@ -1084,15 +1588,15 @@ def main():
         f"launches while comparing = {ssd_kernel.ssd_scan_cuda.launches}")
     report["ssd_rows"] = ssd_rows
 
+    phase_done("kernel phase")
+
     # ---- 4. main paths ------------------------------------------------------
     # (i) the batched-trial engine and the variant layers
     cells = [
-        ("a", SCENARIOS["multicam_heavy"], "6k_1ws2os", None, 8, 1.0),
+        ("a", SCENARIOS["multicam_heavy"], "6k_1ws2os", None, 8, 0.3),
         ("b", SATURATION_SCENARIOS["saturation_5x"], "4k_1ws2os", "poisson", 32, 0.1),
     ]
-    s2d_kernel.s2d_conv_cuda.launches = 0
-    dec_kernel.decode_attn_cuda.launches = 0
-    ssd_kernel.ssd_scan_cuda.launches = 0
+    _zero_counts(torch)
     runs = []
     for name, scen, plat, arrival, n_seeds, dur in cells:
         plans, tasks = scen.plans(PLATFORMS[plat])
@@ -1183,33 +1687,39 @@ def main():
         say("[where] variant layers: device time not measured "
             "(torch.profiler recorded no device activity)")
 
-    # where the engine's time goes: cell (b) once more, under
-    # torch.profiler; the profiler's own host cost stretches only this
-    # run, so the device busy share is taken over the unprofiled run's wall
-    _, _, _, b_plans, b_tasks, b_procs, b_seeds, b_dur, _, b_stats, b_wall = runs[1]
+    # where the engine's time goes: cell (b) once more, under torch.profiler,
+    # at a shorter horizon (every iteration runs the same ops; the profiler's
+    # own host cost, and its sorting of a million events, stretch only this
+    # run), so the device busy share is device time an iteration over the
+    # unprofiled run's wall an iteration
+    _, _, _, b_plans, b_tasks, b_procs, b_seeds, _, _, b_stats, b_wall = runs[1]
+    p_stats = {}
     dev = device_activity(torch, lambda: simulate_batch(
-        b_plans, b_tasks, b_dur, make_scheduler("terastal"), b_seeds,
-        processes=b_procs, device="cuda"))
-    it = b_stats["iterations"]
+        b_plans, b_tasks, WHERE_B_DURATION, make_scheduler("terastal"), b_seeds,
+        processes=b_procs, device="cuda", stats=p_stats))
+    it, p_it = b_stats["iterations"], p_stats["iterations"]
     dev_ms = sum(ms for _, ms in dev.values())
     n_dev = sum(n for n, _ in dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:5]
     report["where"] = where = dict(
-        cell="b", iterations=it, wall_ms=b_wall * 1e3, device_ms=dev_ms, device_ops=n_dev,
-        device_ops_per_iteration=n_dev / it,
-        device_busy_share=dev_ms / (b_wall * 1e3) if n_dev else None,
+        cell="b", iterations=it, wall_ms=b_wall * 1e3, profiled_duration=WHERE_B_DURATION,
+        profiled_iterations=p_it, device_ms=dev_ms, device_ops=n_dev,
+        device_ops_per_iteration=n_dev / p_it,
+        device_busy_share=dev_ms / p_it / (b_wall * 1e3 / it) if n_dev else None,
         top_device=[dict(name=k, ops=n, ms=ms) for k, (n, ms) in top],
     )
     if n_dev:
-        say("[where] (b): wall={wall_ms:.3f} ms over {iterations} iterations; "
-            "device busy {device_ms:.3f} ms = {device_busy_share:.4f} of the wall; "
-            "{device_ops} device ops ({device_ops_per_iteration:.1f} per iteration)"
-            .format(**where))
+        say("[where] (b): wall={wall_ms:.3f} ms over {iterations} iterations; profiled at "
+            "{profiled_duration} s, {profiled_iterations} iterations: device busy {device_ms:.3f} "
+            "ms, {device_busy_share:.4f} of the unprofiled wall an iteration; {device_ops} device "
+            "ops ({device_ops_per_iteration:.1f} per iteration)".format(**where))
         for d in where["top_device"]:
             say(f"[where]   {d['ms']:.3f} ms in {d['ops']} x {d['name'][:100]}")
     else:
         say("[where] (b): device time not measured "
             "(torch.profiler recorded no device activity)")
+
+    phase_done("phase (i)")
 
     # (ii) serving: llama3.2-1b at its published widths, bf16, through
     # serve.run's two halves so that the replay below reuses the weights
@@ -1233,10 +1743,7 @@ def main():
         return logits, c
 
     model.decode_step = keep_logits
-    s2d_kernel.s2d_conv_cuda.launches = 0
-    dec_kernel.decode_attn_cuda.launches = 0
-    ssd_kernel.ssd_scan_cuda.launches = 0
-    torch.cuda.synchronize()
+    _zero_counts(torch)
     t0 = time.perf_counter()
     seq = serve.decode(model, params, tokens=n_tok, batch=batch, ctx=ctx)
     torch.cuda.synchronize()
@@ -1331,30 +1838,35 @@ def main():
             tol_max=SERVE_TOL["max"], tol_rms=SERVE_TOL["rms"],
             where="inside" if fault_inside else "outside", **serve_line))
 
-    # where the serving time goes: the decode loop once more, under torch.profiler
-    dev = device_activity(torch, lambda: serve.decode(model, params, tokens=n_tok,
+    # where the serving time goes: the first steps of the decode loop once
+    # more, under torch.profiler
+    n_prof = SERVE["profile_tokens"]
+    dev = device_activity(torch, lambda: serve.decode(model, params, tokens=n_prof,
                                                       batch=batch, ctx=ctx))
     dev_ms = sum(ms for _, ms in dev.values())
     n_dev = sum(n for n, _ in dev.values())
     dec_ms = sum(ms for name, (_, ms) in dev.items() if "decode_attn" in name)
     top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:6]
     report["serve_where"] = where = dict(
-        steps=n_tok, wall_ms=serve_wall * 1e3, device_ms=dev_ms, device_ops=n_dev,
-        device_ops_per_step=n_dev / n_tok,
-        device_busy_share=dev_ms / (serve_wall * 1e3) if n_dev else None,
+        steps=n_tok, wall_ms=serve_wall * 1e3, profiled_tokens=n_prof, device_ms=dev_ms,
+        device_ops=n_dev, device_ops_per_step=n_dev / n_prof,
+        device_busy_share=dev_ms / n_prof / (serve_wall * 1e3 / n_tok) if n_dev else None,
         decode_attn_ms=dec_ms, decode_attn_share=dec_ms / dev_ms if n_dev else None,
         top_device=[dict(name=k, ops=n, ms=ms) for k, (n, ms) in top],
     )
     if n_dev:
-        say("[where] serve: wall={wall_ms:.3f} ms over {steps} steps; device busy "
-            "{device_ms:.3f} ms = {device_busy_share:.4f} of the wall; {device_ops} device "
-            "ops ({device_ops_per_step:.1f} per step); decode_attn {decode_attn_ms:.3f} ms = "
-            "{decode_attn_share:.4f} of device time".format(**where))
+        say("[where] serve: wall={wall_ms:.3f} ms over {steps} steps; {profiled_tokens} steps "
+            "profiled: device busy {device_ms:.3f} ms, {device_busy_share:.4f} of the unprofiled "
+            "wall a step; {device_ops} device ops ({device_ops_per_step:.1f} per step); "
+            "decode_attn {decode_attn_ms:.3f} ms = {decode_attn_share:.4f} of device time"
+            .format(**where))
         for d in where["top_device"]:
             say(f"[where]   {d['ms']:.3f} ms in {d['ops']} x {d['name'][:100]}")
     else:
         say("[where] serve: device time not measured "
             "(torch.profiler recorded no device activity)")
+
+    phase_done("phase (ii)")
 
     # (iii) ssm prefill: mamba2-1.3b at its published widths, bf16, after the
     # llama weights are freed
@@ -1373,10 +1885,7 @@ def main():
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (Bp, Lp), dtype=np.int64)).cuda()
     batch_in = {"tokens": toks}
-    s2d_kernel.s2d_conv_cuda.launches = 0
-    dec_kernel.decode_attn_cuda.launches = 0
-    ssd_kernel.ssd_scan_cuda.launches = 0
-    torch.cuda.synchronize()
+    _zero_counts(torch)
     t0 = time.perf_counter()
     logits = model.prefill(params, batch_in)
     torch.cuda.synchronize()
@@ -1392,14 +1901,8 @@ def main():
     # with the plain ssd_chunked in place of the kernel
     if tuple(logits.shape) != (Bp, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         fail(f"prefill returned {tuple(logits.shape)} logits, or non-finite ones")
-    kernel_scan = mamba2.ssd_scan
-
     def prefill_with(scan, m, p, inp):
-        mamba2.ssd_scan = scan
-        try:
-            return m.prefill(p, inp)
-        finally:
-            mamba2.ssd_scan = kernel_scan
+        return _with_patch(mamba2, "ssd_scan", scan, lambda: m.prefill(p, inp))
 
     def plain_scan(x, la, B, C, dt, chunk):
         return ssd_chunked(x, la, B, C, dt, chunk)
@@ -1421,8 +1924,7 @@ def main():
     del ref
     # the same weights in f32 (kept for the decode check below), two prompts: the
     # kernel within the limit of the plain replay, the planted fault outside it
-    f32_model = build_model(dataclasses.replace(cfg, dtype="float32"), "cuda")
-    f32_params = f32_model.init(torch.Generator(device="cuda").manual_seed(0))
+    f32_model, f32_params = _f32_twin(torch, cfg)
     f32_in = {"tokens": toks[:2]}
     ref32 = prefill_with(plain_scan, f32_model, f32_params, f32_in)
     f32_max, f32_rms, _ = logits_gap(f32_model.prefill(f32_params, f32_in), ref32)
@@ -1479,12 +1981,11 @@ def main():
         say("[where] prefill: device time not measured "
             "(torch.profiler recorded no device activity)")
 
+    phase_done("phase (iii)")
+
     # (iv) ssm decode: the O(1) recurrent step, which launches no kernel
     n_tok = SSM["tokens"]
-    s2d_kernel.s2d_conv_cuda.launches = 0
-    dec_kernel.decode_attn_cuda.launches = 0
-    ssd_kernel.ssd_scan_cuda.launches = 0
-    torch.cuda.synchronize()
+    _zero_counts(torch)
     t0 = time.perf_counter()
     seq = serve.decode(model, params, tokens=n_tok, batch=Bp, ctx=n_tok)
     torch.cuda.synchronize()
@@ -1496,7 +1997,8 @@ def main():
         fail(f"the ssm decode path launched kernels: ssd_scan, decode_attn = {counts}")
     if tuple(seq.shape) != (Bp, n_tok) or not bool(((seq >= 0) & (seq < cfg.vocab_size)).all()):
         fail(f"ssm decode returned {tuple(seq.shape)} ids, or ids outside the vocabulary")
-    dev = device_activity(torch, lambda: serve.decode(model, params, tokens=n_tok, batch=Bp,
+    n_prof = SSM["profile_tokens"]
+    dev = device_activity(torch, lambda: serve.decode(model, params, tokens=n_prof, batch=Bp,
                                                       ctx=n_tok))
     dev_ms = sum(ms for _, ms in dev.values())
     n_dev = sum(n for n, _ in dev.values())
@@ -1504,67 +2006,65 @@ def main():
     # the JAX package's cross-path check at full width, in f32 as there: one
     # prompt of two chunks, token by token through decode_step, against prefill
     Lc = SSM["check_prompt"]
-    ctoks = torch.from_numpy(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (1, Lc), dtype=np.int64)).cuda()
-    pre = f32_model.prefill(f32_params, {"tokens": ctoks})
-    cache = f32_model.init_cache(1, Lc)
-    for i in range(Lc):
-        step_logits, cache = f32_model.decode_step(f32_params, ctoks[:, i], cache, i)
-    c_max, c_rms, c_agree = logits_gap(step_logits, pre)
-    c_excess = ((step_logits - pre).abs() - CROSS_TOL["rtol"] * pre.abs()).max().item()
-    del f32_model, f32_params, cache
+    c_max, c_rms, c_excess, _ = _cross_path(torch, f32_model, f32_params, Lc, 2)
+    del f32_model, f32_params
     report["ssm_decode"] = sd_line = dict(
         arch=arch, batch=Bp, tokens=n_tok, dtype=cfg.dtype, wall_s=ssm_wall,
         ms_per_token=ssm_wall / n_tok * 1e3, tokens_per_s=Bp * n_tok / ssm_wall,
         ssd_scan_launches=counts[0], decode_attn_launches=counts[1],
-        device_ms=dev_ms, device_ops=n_dev, device_ops_per_step=n_dev / n_tok,
-        device_busy_share=dev_ms / (ssm_wall * 1e3) if n_dev else None,
+        profiled_tokens=n_prof, device_ms_per_step=dev_ms / n_prof,
+        device_ops_per_step=n_dev / n_prof,
+        device_busy_share=dev_ms / n_prof / (ssm_wall / n_tok * 1e3) if n_dev else None,
         top_device=[dict(name=k, ops=n, ms=ms) for k, (n, ms) in top],
-        cross_prompt=Lc, cross_max_rel=c_max, cross_rms_rel=c_rms, cross_argmax_agree=c_agree,
-        cross_max_excess=c_excess,
+        cross_prompt=Lc, cross_max_rel=c_max, cross_rms_rel=c_rms, cross_max_excess=c_excess,
     )
     say("[decode] {arch} {dtype} B={batch} {tokens} tokens: wall={wall_s:.3f} s "
         "ms/token={ms_per_token:.3f} tokens/s={tokens_per_s:.1f}; f32 decode vs prefill of a "
         "{cross_prompt}-token prompt: max|d|/max|ref| {cross_max_rel:.4e}, rms|d|/rms|ref| "
-        "{cross_rms_rel:.4e}, max(|d| - rtol |ref|) {cross_max_excess:.3e}, argmax agrees "
-        "{cross_argmax_agree:.1f}".format(**sd_line))
+        "{cross_rms_rel:.4e}, max(|d| - rtol |ref|) {cross_max_excess:.3e}".format(**sd_line))
     if n_dev:
-        say("[where] ssm decode: device busy {device_ms:.3f} ms = {device_busy_share:.4f} of the "
-            "wall; {device_ops} device ops ({device_ops_per_step:.1f} per step)".format(**sd_line))
+        say("[where] ssm decode ({profiled_tokens} steps profiled): device {device_ms_per_step:.3f} "
+            "ms a step = {device_busy_share:.4f} of the unprofiled wall a step; "
+            "{device_ops_per_step:.1f} device ops a step".format(**sd_line))
         for d in sd_line["top_device"]:
             say(f"[where]   {d['ms']:.3f} ms in {d['ops']} x {d['name'][:100]}")
     else:
         say("[where] ssm decode: device time not measured "
             "(torch.profiler recorded no device activity)")
-    if not bool(torch.isfinite(step_logits).all()):
-        fail("the ssm decode produced non-finite logits")
     if c_excess > CROSS_TOL["atol"]:
         fail(f"f32 decode vs prefill of a {Lc}-token prompt: |d| exceeds "
              f"{CROSS_TOL['atol']} + {CROSS_TOL['rtol']} |ref| by {c_excess:.3e}")
 
+    phase_done("phase (iv)")
+
+    # (vii) dense prefill, and the zamba2 hybrid's prefill and decode, after the
+    # mamba2 weights are freed
+    del model, params, seq
+    torch.cuda.empty_cache()
+    dense_prefill(torch, report)
+    phase_done("phase (vii) (h)")
+    hybrid(torch, report)
+    phase_done("phase (vii) (i) and (j)")
+
     # (v) the paper's method: no kernel of the port on this path
-    s2d_kernel.s2d_conv_cuda.launches = 0
-    dec_kernel.decode_attn_cuda.launches = 0
-    ssd_kernel.ssd_scan_cuda.launches = 0
-    t0 = time.perf_counter()
+    _zero_counts(torch)
     paper_method(torch, report)
     counts = (s2d_kernel.s2d_conv_cuda.launches, dec_kernel.decode_attn_cuda.launches,
               ssd_kernel.ssd_scan_cuda.launches)
     say(f"[paper] counts read after phase (v): s2d_conv, decode_attn, ssd_scan launches = "
-        f"{counts}; phase (v) took {time.perf_counter() - t0:.1f} s")
+        f"{counts}")
+    phase_done("phase (v)")
     if counts != (0, 0, 0):
         fail(f"phase (v) launched kernels of the port: {counts}")
 
     # (vi) the fault lane of the batched engine: no kernel of the port either
-    s2d_kernel.s2d_conv_cuda.launches = 0
-    dec_kernel.decode_attn_cuda.launches = 0
-    ssd_kernel.ssd_scan_cuda.launches = 0
-    t0 = time.perf_counter()
+    _zero_counts(torch)
     fault_lane(torch, report)
     counts = (s2d_kernel.s2d_conv_cuda.launches, dec_kernel.decode_attn_cuda.launches,
               ssd_kernel.ssd_scan_cuda.launches)
     say(f"[faults] counts read after phase (vi): s2d_conv, decode_attn, ssd_scan launches = "
-        f"{counts}; phase (vi) took {time.perf_counter() - t0:.1f} s")
+        f"{counts}")
+    phase_done("phase (vi)")
     if counts != (0, 0, 0):
         fail(f"phase (vi) launched kernels of the port: {counts}")
 
@@ -1596,7 +2096,7 @@ def main():
         library_ms=main["library_cold_ms"],
     )
     # the SSD scan at the prefill path's shape in the model's dtypes
-    (main,) = [r for r in ssd_rows if r["main_path"] and r["dtype"] == "bfloat16"]
+    (main,) = [r for r in ssd_rows if r["path"] == SSM["arch"] and r["dtype"] == "bfloat16"]
     ssd_entry = dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:27",

@@ -38,8 +38,10 @@
 //     rounds its softmax weights; l sums the unrounded f32 weights.
 //   * f32 stays on the CUDA cores in f32 (a TF32 product would miss the f32
 //     tolerance): a cache row of Dh values is read from shared memory by
-//     TPR = Dh / (NV * 4) neighbouring threads with NV 16-byte loads each (NV = 1,
-//     or 2 where one load per thread would need more than a warp, Dh = 256);
+//     TPR = Dh / (NV * 4) neighbouring threads with NV 16-byte loads each, NV the
+//     fewest that make TPR at most a warp and a divisor of the block (NV = 1;
+//     2 at Dh = 256; 5 at Dh = 80, whose 20 vectors no divisor of 128 up to 32
+//     splits one a thread);
 //     each thread holds its [G, 4 NV] slice of the query tile and its own
 //     (m, l, acc) in registers, and the partial dots are summed with warp
 //     shuffles.
@@ -402,8 +404,16 @@ decode_attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ---- f32: CUDA cores --------------------------------------------------------
 
+// 16-byte vectors per thread and row: the fewest that split a row of DH floats
+// evenly among at most a warp of threads whose count divides the block
+constexpr int vectors_per_thread(int dh) {
+    int nv = 1;
+    while (!(dh / 4 % nv == 0 && dh / 4 / nv <= 32 && THREADS % (dh / 4 / nv) == 0)) ++nv;
+    return nv;
+}
+
 template <int DH, int G> struct SimtLayout {
-    static constexpr int NV = DH / 4 > 32 ? 2 : 1;    // 16-byte vectors per thread and row
+    static constexpr int NV = vectors_per_thread(DH);  // 16-byte vectors per thread and row
     static constexpr int TPR = DH / (NV * 4);         // threads per cache row
     static constexpr int NG = THREADS / TPR;          // rows read side by side
     static constexpr int ROW_BYTES = DH * 4;
@@ -647,6 +657,8 @@ int dispatch_head_dim(const Args& a) {
         case 32: return dispatch_group<T, 32>(a);
         case 64: return dispatch_group<T, 64>(a);
         case 128: return dispatch_group<T, 128>(a);
+        // zamba2-2.7b: 32 heads over 32 KV heads of 80
+        case 80: return a.G == 1 ? launch<T, 80, 1>(a) : (int)cudaErrorInvalidValue;
         // gemma-7b: 16 heads over 16 KV heads of 256
         case 256: return a.G == 1 ? launch<T, 256, 1>(a) : (int)cudaErrorInvalidValue;
         default: return (int)cudaErrorInvalidValue;

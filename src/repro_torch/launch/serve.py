@@ -1,7 +1,8 @@
-"""Serving entry point of the torch port: greedy decode loop for the dense and ssm families.
+"""Serving entry point of the torch port: greedy decode loop for the dense, ssm and hybrid families.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --tokens 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --tokens 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --tokens 16
 
 Port of the JAX package's ``launch/serve.py``: cache init, one
 ``decode_step`` per token from token 0, greedy sampling (like the JAX
@@ -10,7 +11,8 @@ unless the caller passes ``device="cpu"``; without a card and without
 that, it raises.  On the card a dense model runs every attention step
 through the hand-written decode-attention kernel; the ssm family
 (mamba2) decodes by its O(1) recurrent update, which launches no kernel
-of the port.  Weights are drawn at random from ``seed``.
+of the port; the hybrid family (zamba2) does both, its shared attention
+block through the kernel at each of its sites.  Weights are drawn at random from ``seed``.
 :func:`run` is :func:`load` followed by :func:`decode`; a caller that
 wants the weights as well (to replay the same steps) calls the two.
 """

@@ -1,7 +1,7 @@
-"""Shared torch building blocks of the decode path: norms, RoPE, GQA attention.
+"""Shared torch building blocks: norms, RoPE, GQA attention (prefill and decode).
 
-Port of the parts of the JAX package's ``models/common.py`` that a dense
-decode step runs.  Parameters are plain dicts of tensors in the JAX
+Port of the parts of the JAX package's ``models/common.py`` that prefill
+and a decode step run.  Parameters are plain dicts of tensors in the JAX
 layouts (``w [d_in, d_out]``, ``emb [vocab, d]``, ``scale [d]``), made by
 the ``init_*`` helpers from an explicit ``torch.Generator`` on the target
 device (the numbers differ from ``jax.random``'s; the tests draw weights
@@ -9,9 +9,8 @@ with numpy and hand the same arrays to both packages).  Compute runs in
 the parameters' dtype with f32 where the JAX package uses it: norm
 statistics, RoPE phases, attention scores and softmax, the GLU gate.
 
-Not ported here: ``flash_attention`` and ``chunked_softmax_xent``
-(prefill and training, a later slice); ``shard_hint`` and
-``maybe_remat`` (no counterpart on one card).
+Not ported here: ``chunked_softmax_xent`` (training, a later slice);
+``shard_hint`` and ``maybe_remat`` (no counterpart on one card).
 """
 
 from __future__ import annotations
@@ -92,6 +91,64 @@ def naive_attention(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
     return o.reshape(B, Lq, H, Dh)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    q_chunk: int = 512,
+    k_chunk: int = 1024,
+) -> torch.Tensor:
+    """Chunked online-softmax attention with GQA, bounded memory.
+
+    q: [B, Lq, H, Dh]; k/v: [B, Lk, Hkv, Dh].  Lengths that are not a
+    multiple of the chunk are padded (padded keys are masked out, padded
+    query rows sliced off).  The JAX package's ``lax.map`` over query
+    chunks and ``lax.scan`` over key chunks are Python loops here; ``m``,
+    ``l`` and ``acc`` are f32, and every block is computed, the ones
+    above the causal diagonal too, as in JAX."""
+    B, Lq0, H, Dh = q.shape
+    _, Lk0, Hkv, _ = k.shape
+    G = H // Hkv
+    q_chunk = min(q_chunk, Lq0)
+    k_chunk = min(k_chunk, Lk0)
+    pad_q = (-Lq0) % q_chunk
+    pad_k = (-Lk0) % k_chunk
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    Lq, Lk = Lq0 + pad_q, Lk0 + pad_k
+    scale = float(1.0 / np.sqrt(Dh))
+    pos = torch.arange(max(Lq, Lk), device=q.device)
+    out = torch.empty((B, Lq, H, Dh), dtype=q.dtype, device=q.device)
+    for q0 in range(0, Lq, q_chunk):
+        q_blk = q[:, q0:q0 + q_chunk].reshape(B, q_chunk, Hkv, G, Dh)
+        qpos = pos[q0:q0 + q_chunk]
+        m = torch.full((B, Hkv, G, q_chunk), -1e30, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, Hkv, G, q_chunk), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, Hkv, G, q_chunk, Dh), dtype=torch.float32, device=q.device)
+        for k0 in range(0, Lk, k_chunk):
+            k_blk, v_blk = k[:, k0:k0 + k_chunk], v[:, k0:k0 + k_chunk]
+            kp = pos[k0:k0 + k_chunk]
+            s = _gqa_scores(q_blk, k_blk) * scale  # [B,Hkv,G,qc,kc] f32
+            mask = kp[None, :] < Lk0  # padded keys invisible
+            if causal:
+                mask = mask & (qpos[:, None] >= kp[None, :])
+            s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v_blk.dtype), v_blk)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]  # [B,Hkv,G,qc,Dh]
+        out[:, q0:q0 + q_chunk] = o.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, Dh).to(q.dtype)
+    return out[:, :Lq0]
 
 
 def decode_attention(

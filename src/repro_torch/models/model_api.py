@@ -9,10 +9,10 @@ Port of the JAX package's ``models/model_api.py`` for serving.
   decode_step(params, token, cache, pos) -> (logits, cache)   (cache updated in place)
 
 ``SHAPES`` / :class:`ShapeSpec` are the JAX package's shape kinds, as data.
-The dense family (decode) and the ssm family (prefill and decode) are
-ported so far; the other families, dense prefill, ``loss`` and the
-sharding specs (``param_specs``, ``cache_specs``, ``input_specs``,
-``batch_specs``) come with later slices.
+The dense, ssm and hybrid families are ported, prefill and decode; the
+other families, ``loss`` and the sharding specs (``param_specs``,
+``cache_specs``, ``input_specs``, ``batch_specs``) come with later
+slices.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import Any, Callable, Dict, Tuple, Union
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import hybrid, mamba2, transformer
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -46,10 +46,9 @@ SHAPES: Dict[str, ShapeSpec] = {
 
 #: families not ported yet -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "moe": "ROADMAP A8 (remaining model families)",
-    "hybrid": "ROADMAP A8 (remaining model families)",
-    "encdec": "ROADMAP A8 (remaining model families)",
-    "vlm": "ROADMAP A8 (remaining model families)",
+    "moe": "ROADMAP A6 (remaining model families: moe)",
+    "encdec": "ROADMAP A6 (remaining model families: encdec)",
+    "vlm": "ROADMAP A6 (remaining model families: vlm, its prefill with the patch embeddings)",
 }
 
 
@@ -63,14 +62,16 @@ class Model:
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Forward over ``batch["tokens"] [B, L]`` -> last-position logits
-        ``[B, vocab]`` (f32).  The ssm family runs every block's SSD scan
-        through ``kernels.ssd_scan.ops.ssd_scan``."""
-        if self.cfg.family == "ssm":
-            return mamba2.ssm_prefill(self.cfg, params, batch["tokens"])
-        raise NotImplementedError(
-            f"prefill of family '{self.cfg.family}' ({self.cfg.name}) is not ported to torch "
-            "yet: ROADMAP A6 / A8 (dense prefill: flash_attention, forward_hidden_dense)"
-        )
+        ``[B, vocab]`` (f32).  Attention runs through ``flash_attention``,
+        every Mamba block's SSD scan through ``kernels.ssd_scan.ops.ssd_scan``."""
+        fam, tokens = self.cfg.family, batch["tokens"]
+        if fam == "dense":
+            return transformer.dense_prefill(self.cfg, params, tokens)
+        if fam == "ssm":
+            return mamba2.ssm_prefill(self.cfg, params, tokens)
+        if fam == "hybrid":
+            return hybrid.hybrid_prefill(self.cfg, params, tokens)
+        raise ValueError(fam)
 
 
 def build_model(cfg: ModelConfig, device: Union[str, torch.device, None] = None) -> Model:
@@ -80,9 +81,17 @@ def build_model(cfg: ModelConfig, device: Union[str, torch.device, None] = None)
         raise NotImplementedError(
             f"family '{fam}' ({cfg.name}) is not ported to torch yet: {NOT_PORTED[fam]}"
         )
-    if fam not in ("dense", "ssm"):
+    if fam not in ("dense", "ssm", "hybrid"):
         raise ValueError(f"unknown family '{fam}'")
     dev = resolve_device(device)
+    if fam == "hybrid":
+        return Model(
+            cfg,
+            dev,
+            init=lambda gen: hybrid.init_hybrid_model(gen, cfg),
+            init_cache=lambda B, L: hybrid.hybrid_init_cache(cfg, B, L, dev),
+            decode_step=lambda p, t, c, pos: hybrid.hybrid_decode_step(cfg, p, t, c, pos),
+        )
     if fam == "ssm":
         return Model(
             cfg,

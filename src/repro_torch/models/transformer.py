@@ -1,13 +1,17 @@
-"""Dense decoder-only transformer (llama / qwen / gemma / mistral families): decode path.
+"""Dense decoder-only transformer (llama / qwen / gemma / mistral families): prefill and decode.
 
-Port of the JAX package's ``models/transformer.py`` for one serving step.
-Layers stay *stacked* along a leading ``n_layers`` axis, as in JAX, so a
-JAX parameter tree converts leaf for leaf (``convert.params_from_numpy``);
-where JAX scans the stack, the port loops over its layers.
+Port of the JAX package's ``models/transformer.py`` for serving: the
+forward over a whole prompt (``flash_attention``) and one decode step
+(the decode-attention kernel).  Layers stay *stacked* along a leading
+``n_layers`` axis, as in JAX, so a JAX parameter tree converts leaf for
+leaf (``convert.params_from_numpy``); where JAX scans the stack, the
+port loops over its layers.  The hybrid family reuses the dense block
+(``dense_block_apply``, ``dense_block_decode``) as its shared attention
+block.
 
-Left for later slices: ``attn_apply_train``, ``dense_block_apply``,
-``forward_hidden_dense`` and ``dense_loss`` (prefill and training), and
-the ``*_specs`` sharding trees (nothing to shard on one card).
+Left for later slices: ``dense_loss`` (training), and the ``*_specs``
+sharding trees (nothing to shard on one card); ``maybe_remat`` has no
+meaning without a backward pass.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from repro_torch.models.common import (
     apply_rope,
     dtype_of,
     embed,
+    flash_attention,
     glu_activation,
     init_embedding,
     init_linear,
@@ -67,10 +72,36 @@ def init_dense_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype)
     }
 
 
+def attn_apply_train(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention over a whole sequence, x: [B, L, D]."""
+    B, L, D = x.shape
+    dh = cfg.resolved_head_dim
+    q = linear(p["wq"], x).reshape(B, L, cfg.n_heads, dh)
+    k = linear(p["wk"], x).reshape(B, L, cfg.n_kv_heads, dh)
+    v = linear(p["wv"], x).reshape(B, L, cfg.n_kv_heads, dh)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=True, q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+    return linear(p["wo"], o.reshape(B, L, cfg.n_heads * dh))
+
+
 def mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     a = linear(p["w_gate"], x)
     b = linear(p["w_up"], x)
     return linear(p["w_down"], glu_activation(cfg.activation, a, b))
+
+
+def dense_block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+    if cfg.parallel_block:
+        # PaLM-style parallel formulation: both branches read the same input
+        a = attn_apply_train(cfg, p["attn"], rmsnorm(p["attn_norm"], x, cfg.norm_eps), positions)
+        m = mlp_apply(cfg, p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps))
+        return x + a + m
+    x = x + attn_apply_train(cfg, p["attn"], rmsnorm(p["attn_norm"], x, cfg.norm_eps), positions)
+    x = x + mlp_apply(cfg, p["mlp"], rmsnorm(p["mlp_norm"], x, cfg.norm_eps))
+    return x
 
 
 # -------------------------------------------------------- decode (1 token) --
@@ -172,6 +203,23 @@ def _lm_head_w(cfg: ModelConfig, params: Params) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params["embed"]["emb"].T
     return params["lm_head"]["w"]
+
+
+def forward_hidden_dense(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                         positions: torch.Tensor) -> torch.Tensor:
+    """Embedding-space input [B, L, D] -> final hidden states, layer by layer."""
+    for i in range(cfg.n_layers):
+        x = dense_block_apply(cfg, _layer(params["blocks"], i), x, positions)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def dense_prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Forward over ``tokens [B, L]`` -> last-position logits [B, vocab] (f32)."""
+    B, L = tokens.shape
+    x = embed(params["embed"], tokens)
+    positions = torch.arange(L, device=tokens.device).expand(B, L)
+    h = forward_hidden_dense(cfg, params, x, positions)
+    return (h[:, -1] @ _lm_head_w(cfg, params)).float()
 
 
 def dense_init_cache(cfg: ModelConfig, batch: int, max_len: int,

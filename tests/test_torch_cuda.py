@@ -18,9 +18,10 @@ runs on a machine that has only torch:
   and bf16 (``2e-2 * max|ref|``: the plain version rounds the softmax
   weights to bf16), at the ``tests/test_kernels.py`` shapes, the serving
   path's shape, a ragged cache length, every split of a row's cache (1 to
-  8 blocks a cluster), per-row valid lengths from 0, and gemma-7b's head
-  shape (Dh = 256, one query head per KV head); serving goes through the
-  kernel;
+  8 blocks a cluster), per-row valid lengths from 0, gemma-7b's head
+  shape (Dh = 256, one query head per KV head) and zamba2-2.7b's (Dh = 80,
+  one query head per KV head, with a CUDA-graph replay); serving goes
+  through the kernel;
 * the SSD-scan kernel (``csrc/ssd_scan.cu``) against the oracle
   ``ssd_naive`` (f32, ``tests/test_kernels.py``'s rel < 1e-5) and the
   plain ``ssd_chunked`` (bf16 output: 2e-2 * max|ref|) at the
@@ -29,6 +30,9 @@ runs on a machine that has only torch:
   log_a, dt f32), bit-identical repeats and CUDA-graph replay (the C Bᵀ
   workspace allocated under capture), the wrapper's rejections, and a
   reduced mamba2 prefill through the kernel, one call per layer;
+* a reduced zamba2 (heads of 80) prefilling and decoding on the card
+  through both kernels, equal to the CPU, and raising where the decode
+  kernel refuses its head shape (no fallback);
 * ``simulate_batch`` on the card against the host SoA engine, fault-free
   and with a ``down`` window (the fault lane);
 * the device Terastal round (``core/scheduler_torch.terastal_round``, one
@@ -231,6 +235,7 @@ DECODE_SHAPES = [  # (B, L, H, Hkv, Dh, pos): tests/test_kernels.py, serving, ra
     (33, 40, 16, 8, 32, 39),  # B * Hkv fills the card: one block per row
     (1, 1024, 8, 1, 128, 1000),  # a cluster of 8 blocks shares one row's cache
     (2, 300, 16, 16, 256, 299), (8, 2048, 16, 16, 256, 2047),  # gemma-7b's heads
+    (8, 2048, 32, 32, 80, 255), (8, 2048, 32, 32, 80, 2047), (2, 77, 4, 4, 80, 76),  # zamba2's
 ]
 
 
@@ -311,6 +316,25 @@ def test_decode_kernel_is_deterministic_and_replays_in_a_graph(card, dtype):
     replayed = _replayed(lambda: decode_attn_cuda(q[:, 0], k, v, valid))
     assert torch.equal(first, second)
     assert torch.equal(replayed, first)
+
+
+@pytest.mark.parametrize("splits", [None, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_zamba2_heads_replays_in_a_graph(card, dtype, splits):
+    """zamba2-2.7b's heads (Dh 80, one query head per KV head: five 16-byte
+    vectors a thread in f32) at its serving shape: the planner's split and
+    a cluster of 3, against the plain version, and a CUDA-graph replay
+    bit-equal to an eager call."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attention
+
+    B, L, H, Hkv, Dh, pos = 8, 2048, 32, 32, 80, 1499
+    q, k, v = _decode_inputs(card, B, L, H, Hkv, Dh, dtype, 6)
+    valid = torch.full((B,), pos + 1, dtype=torch.int32, device=card)
+    first = decode_attn_cuda(q[:, 0], k, v, valid, splits=splits)
+    replayed = _replayed(lambda: decode_attn_cuda(q[:, 0], k, v, valid, splits=splits))
+    assert torch.equal(replayed, first)
+    _close(first[:, None], decode_attention(q, k, v, pos), dtype)
 
 
 def test_decode_kernel_wrapper_rejects_what_it_does_not_take(card):
@@ -512,6 +536,54 @@ def test_mamba2_prefill_on_the_card_goes_through_the_kernel(card):
     seq = serve.decode(model, params, tokens=4, batch=2, ctx=8)
     assert ssd_scan_cuda.launches == before + model.cfg.n_layers  # decode: no kernel
     assert seq.shape == (2, 4)
+
+
+def test_zamba2_prefill_and_decode_on_the_card_go_through_both_kernels(card):
+    """A reduced zamba2 (f32, two attention sites sharing one block, heads
+    of 80) prefills on the card with one SSD-kernel launch per Mamba block
+    and decodes with one decode-kernel launch per site and step; its logits
+    equal the same weights' on the CPU (tests/test_model_consistency.py's
+    atol 2e-4, rtol 2e-3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.models.model_api import build_model
+
+    cfg = get_config("zamba2-2.7b").reduced(dtype="float32", n_layers=4, head_dim=80)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    host = build_model(cfg, device="cpu")
+    host_params = _to_cpu(params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 3 * cfg.ssm_chunk), dtype=np.int32))
+    before = (ssd_scan_cuda.launches, decode_attn_cuda.launches)
+    got = model.prefill(params, {"tokens": toks.to(card)})
+    assert (ssd_scan_cuda.launches, decode_attn_cuda.launches) == (before[0] + 4, before[1])
+    want = host.prefill(host_params, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-3)
+    cache, host_cache = model.init_cache(2, 8), host.init_cache(2, 8)
+    for i in range(5):
+        got, cache = model.decode_step(params, toks[:, i].to(card), cache, i)
+        want, host_cache = host.decode_step(host_params, toks[:, i], host_cache, i)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-3)
+    assert (ssd_scan_cuda.launches, decode_attn_cuda.launches) == (before[0] + 4,
+                                                                   before[1] + 2 * 5)
+
+
+def test_zamba2_decode_on_the_card_raises_where_the_kernel_refuses(card, monkeypatch):
+    """No fallback: with the kernel refusing zamba2's head shape, a decode
+    step on the card raises instead of computing through the plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import kernel
+    from repro_torch.models.model_api import build_model
+
+    cfg = get_config("zamba2-2.7b").reduced(dtype="float32", head_dim=80)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    monkeypatch.setattr(kernel, "SUPPORTED", kernel.SUPPORTED - {(80, 1)})
+    with pytest.raises(ValueError, match="head dims"):
+        model.decode_step(params, torch.zeros((2,), dtype=torch.int32, device=card),
+                          model.init_cache(2, 8), 0)
 
 
 def _to_cpu(tree):

@@ -28,11 +28,12 @@ from repro_torch.kernels.decode_attn.ops import gqa_decode_attention
 from repro_torch.kernels.decode_attn.ref import decode_attention
 from repro_torch.models import common as P
 
-SHAPES = [  # (B, L, H, Hkv, Dh, pos, chunk): tests/test_kernels.py
+SHAPES = [  # (B, L, H, Hkv, Dh, pos, chunk): tests/test_kernels.py, then zamba2's heads
     (2, 64, 8, 2, 16, 63, 16),
     (1, 128, 4, 4, 32, 80, 32),
     (3, 256, 16, 8, 64, 255, 64),
     (1, 64, 8, 1, 128, 10, 64),
+    (2, 96, 4, 4, 80, 70, 32),
 ]
 TOL = dict(atol=1e-5, rtol=1e-4)
 
@@ -130,9 +131,11 @@ def test_kernel_wrapper_never_takes_cpu_tensors():
 
 
 def test_decode_kernel_takes_every_dense_configs_head_shape():
-    """Every dense config of the registry decodes through the kernel on the
-    card: its (head dim, query heads per KV head) is one the kernel takes."""
-    dense = [get_config(a) for a in ARCHS if get_config(a).family == "dense"]
-    assert {c.name for c in dense} >= {"gemma-7b", "llama3.2-1b"}
-    for c in dense:
+    """Every config of the registry whose family the port serves with
+    attention (dense, and hybrid's shared block) decodes through the kernel
+    on the card: its (head dim, query heads per KV head) is one the kernel
+    takes."""
+    served = [get_config(a) for a in ARCHS if get_config(a).family in ("dense", "hybrid")]
+    assert {c.name for c in served} >= {"gemma-7b", "llama3.2-1b", "zamba2-2.7b"}
+    for c in served:
         assert (c.resolved_head_dim, c.n_heads // c.n_kv_heads) in SUPPORTED, c.name
