@@ -25,7 +25,12 @@ Phases, each on lines of its own; any failure exits non-zero:
    (``ref.decode_attention``): at the ``tests/test_kernels.py`` shapes
    and at the serving shapes of llama3.2-1b (B=8, L=2048, H=32, Hkv=8,
    Dh=64), gemma-7b (B=8, L=2048, H=16, Hkv=16, Dh=256) and zamba2-2.7b
-   (B=8, L=2048, H=32, Hkv=32, Dh=80) with 256 and 2048 valid positions, in f32 and bf16, the grid sized from the valid
+   (B=8, L=2048, H=32, Hkv=32, Dh=80) with 256 and 2048 valid positions,
+   and phase (viii)'s serving shapes with the cache full: whisper-base's
+   self- and cross-attention (B=8, H=Hkv=8, Dh=64; L=448 with 256 valid,
+   L=1500), llava-next-34b's (B=8, L=4352, 56 heads over 8 of 128),
+   llama4-maverick's (L=4160, 40 over 8) and qwen3-moe's (L=4160, 64 over
+   4), in f32 and bf16, the grid sized from the valid
    length as the serving path sizes it from ``pos + 1``; tolerances: f32
    |d| <= 1e-5 + 1e-4 |ref| (another summation order), bf16 max|d| <=
    2e-2 max|ref| (both versions round the softmax weights to bf16, the
@@ -56,8 +61,9 @@ Phases, each on lines of its own; any failure exits non-zero:
    may drop a window's first event) and each one's time.  At the serving shapes
    the decode kernel and SDPA are also timed cold (calls taking turns
    over copies of the cache twice the 50 MB L2), and the kernels line
-   takes those; at llama3.2-1b's and zamba2-2.7b's serving shapes in
-   bf16, the device kernels of a decode call (``torch.profiler`` over four
+   takes those (phase (viii)'s shapes are timed cold too); at
+   llama3.2-1b's, zamba2-2.7b's, llava-next-34b's and qwen3-moe's serving
+   shapes in bf16, the device kernels of a decode call (``torch.profiler`` over four
    calls: must be 1, recorded in three or four of them) and the cold time
    of every split of the cache (1 to 8 blocks a cluster) beside the
    planner's;
@@ -163,6 +169,39 @@ Phases, each on lines of its own; any failure exits non-zero:
    step, the busy share (device time a step over the unprofiled run's wall
    a step) and the kernel's share; then the f32 decode vs prefill check on
    a 512-token prompt (two SSD chunks);
+   (viii) after (vii), the encdec, vlm and moe families at their published
+   widths in bf16 (random weights of seed 0), each model freed before the
+   next: (k) ``whisper-base`` (6 + 6 layers, d_model 512, 8 heads of 64,
+   vocab 51865): prefill of B=8 rows of 1500 frame embeddings and 448 text
+   tokens, then ``encode``, ``encdec_prefill_cross`` and 256 greedy tokens
+   from token 0 (``serve.decode`` handed that cache), 12 decode-kernel
+   launches a step (self- and cross-attention); (l) ``llava-next-34b`` cut to
+   8 of 60 layers (d_model 7168, 56 heads over 8 of 128, d_ff 20480): prefill
+   of B=8 rows of 2880 patch embeddings and 1216 tokens (L=4096), its keys
+   and values kept in a 4352-position cache, then 256 greedy tokens from the
+   prompt's argmax at position 4096, 8 launches a step; (m)
+   ``llama4-maverick-400b-a17b`` cut to 1 of 24 groups (a dense and an MoE
+   block; 128 experts of 5120 x 8192, top-1; 40 heads over 8 of 128) and (n)
+   ``qwen3-moe-235b-a22b`` cut to 2 of 94 layers (128 experts of 4096 x
+   1536, top-8; 64 heads over 4 of 128): prefill of B=8 prompts of 4096,
+   then 64 tokens as (l).  Each prefill launches no kernel of the port, each
+   decode exactly (sites x steps) decode-kernel launches and nothing else.
+   Held: every replayed step, from the kernel run's own state, once through
+   the kernel (every attention site within 2e-2 max|ref| of the plain
+   version on its inputs) and once through the plain attention, the logits
+   within (ii)'s serving limit on every step where both chose the same
+   experts (a router flip, a discrete change, is counted and read); in f32
+   on a twin of the same seed (llama4's with 16 of its 128 experts: the f32
+   bank does not fit): the prefill of two rows within 1e-4 of max|ref| of a
+   ``naive_attention`` replay, and decode vs prefill of a 520-token prompt
+   (whisper: 448 tokens after the frames' cross K/V; the moe cells with a
+   capacity factor of E/K, so that no path drops a token) within
+   ``2e-4 + 2e-3 |ref|``.  Read: ms a prefill, prompt positions/s, peak
+   memory, busy share, attention's and the MoE layers' shares of device
+   time (their calls replayed alone), one attention call beside
+   ``scaled_dot_product_attention``; ms a token, tokens/s, device ops a
+   step, busy share and the kernel's share over the first 32 (moe: 16)
+   profiled steps;
    (v) the paper's method (no kernel of the port; the counts must stay
    0): Algorithm 1 (``core/budget_torch``) on the card for every model
    of every catalog scenario on its own platforms, one call each and
@@ -226,10 +265,20 @@ DECODE_SHAPES = [  # (B, L, H, Hkv, Dh, valid): tests/test_kernels.py, then serv
     (1, 64, 8, 1, 128, 11), (8, 2048, 32, 8, 64, 256), (8, 2048, 32, 8, 64, 2048),
     (8, 2048, 16, 16, 256, 256), (8, 2048, 16, 16, 256, 2048),  # gemma-7b's heads
     (8, 2048, 32, 32, 80, 256), (8, 2048, 32, 32, 80, 2048),  # zamba2-2.7b's heads
+    # phase (viii)'s serving shapes, the cache full at the last step: whisper-base's
+    # self- and cross-attention, llava-next-34b's (G 7), llama4-maverick's (G 5) and
+    # qwen3-moe's (G 16) after a 4096-position prompt
+    (8, 448, 8, 8, 64, 256), (8, 1500, 8, 8, 64, 1500), (8, 4352, 56, 8, 128, 4352),
+    (8, 4160, 40, 8, 128, 4160), (8, 4160, 64, 4, 128, 4160),
 ]
 #: (H, Dh) of the serving shapes whose device kernels per call and cold time at
-#: every split are printed: llama3.2-1b's and zamba2-2.7b's
-PLAN_HEADS = ((32, 64), (32, 80))
+#: every split are printed: llama3.2-1b's and zamba2-2.7b's, and at their own
+#: serving shapes llava-next-34b's and qwen3-moe's
+PLAN_HEADS = ((32, 64), (32, 80), (56, 128), (64, 128))
+#: (B, L, H, Hkv, Dh) of phase (viii)'s rows, timed cold as the serving shape is
+NEW_PATH_SHAPES = {(8, 448, 8, 8, 64): "whisper-base self", (8, 1500, 8, 8, 64): "whisper-base cross",
+                   (8, 4352, 56, 8, 128): "llava-next-34b", (8, 4160, 40, 8, 128): "llama4-maverick",
+                   (8, 4160, 64, 4, 128): "qwen3-moe"}
 SSD_SHAPES = [  # (Bt, L, H, P, N, Q): tests/test_kernels.py, then the prefill paths
     (2, 64, 4, 8, 16, 16), (1, 128, 2, 64, 128, 32), (2, 32, 8, 16, 8, 32),
     (1, 64, 1, 128, 64, 64), (8, 4096, 64, 64, 128, 256), (8, 4096, 80, 64, 64, 256),
@@ -264,6 +313,37 @@ DENSE_F32_TOL = 1e-4
 # check on 512 tokens (two SSD chunks)
 HYBRID = dict(arch="zamba2-2.7b", batch=8, prompt=4096, ctx=2048, tokens=256,
               check_prompt=512, fault_steps=16, free_steps=32, profile_tokens=64)
+# (viii) the remaining families at their published widths, bf16, random weights of
+# seed 0, each cut in depth alone (`cut`): prefill of B=8 prompts, then greedy
+# decode from the prompt's cache (whisper: from token 0 after the cross K/V).
+# `widths` are the published widths the run checks; `check_prompt` the f32 decode
+# vs prefill check's length (two query chunks of 512, the second padded, and a
+# padded key chunk; whisper: its 448-token text context); `twin` what the f32
+# twin changes where the bf16 model's f32 copy does not fit (llama4's bank)
+WHISPER = dict(arch="whisper-base", batch=8, text=448, tokens=256, profile_tokens=32,
+               check_prompt=448, cut={},
+               widths=dict(n_layers=6, n_encoder_layers=6, encoder_seq=1500, d_model=512,
+                           n_heads=8, n_kv_heads=8, head_dim=64, d_ff=2048,
+                           vocab_size=51865, tie_embeddings=True, dtype="bfloat16"))
+VLM = dict(arch="llava-next-34b", batch=8, text=1216, tokens=256, profile_tokens=32,
+           check_prompt=520, cut=dict(n_layers=8),
+           widths=dict(d_model=7168, n_heads=56, n_kv_heads=8, head_dim=128, d_ff=20480,
+                       vocab_size=64000, n_patches=2880, dtype="bfloat16"))
+MOE_CELLS = [
+    dict(label="m", arch="llama4-maverick-400b-a17b", batch=8, prompt=4096, tokens=64,
+         profile_tokens=16, check_prompt=520, cut=dict(n_layers=2), twin=dict(n_experts=16),
+         widths=dict(d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128, d_ff=8192,
+                     vocab_size=202048, n_experts=128, experts_per_token=1, moe_d_ff=8192,
+                     moe_every=2, dtype="bfloat16")),
+    dict(label="n", arch="qwen3-moe-235b-a22b", batch=8, prompt=4096, tokens=64,
+         profile_tokens=16, check_prompt=520, cut=dict(n_layers=2), twin={},
+         widths=dict(d_model=4096, n_heads=64, n_kv_heads=4, head_dim=128, d_ff=1536,
+                     vocab_size=151936, n_experts=128, experts_per_token=8, moe_d_ff=1536,
+                     moe_every=1, dtype="bfloat16")),
+]
+# each attention site of a replayed step: the kernel against the plain version on
+# the same inputs, max|d| <= 2e-2 max|ref| (section 2's bf16 kernel limit)
+SITE_TOL = 2e-2
 # (v) the paper's method.  Budgets vs numpy: tests/test_budget.py's rtol (the
 # card sums the reference total in another order than numpy).
 BUDGET_RTOL = 1e-5
@@ -840,15 +920,20 @@ def fault_lane(torch, report):
         say(f"[faults] device ops an iteration faulted / fault-free: {out['ops_ratio']:.3f}")
 
 
-def _prefill_where(torch, model, params, batch_in):
+def _prefill_where(torch, model, params, batch_in, mods=None, positions=None):
     """A timed prefill (ms, peak memory), then one under torch.profiler that
-    keeps every flash_attention call's inputs, then those calls alone under
-    it, and the first call's inputs timed through flash_attention and
-    through ``scaled_dot_product_attention`` (the yardstick of a later
-    attention kernel; the port never calls it)."""
-    from repro_torch.models import transformer
+    keeps every flash_attention call's inputs (and every ``moe_ffn_apply``
+    call's), then those calls alone under it, and the first attention
+    call's inputs timed through flash_attention and through
+    ``scaled_dot_product_attention`` (the yardstick of a later attention
+    kernel; the port never calls it).  ``mods``: the modules whose
+    ``flash_attention`` the prefill calls (``transformer`` when None);
+    ``positions``: prompt positions a row (the tokens' count when None)."""
+    from repro_torch.models import moe, transformer
 
+    mods = mods or (transformer,)
     flash = transformer.flash_attention
+    ffn = moe.moe_ffn_apply
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -856,39 +941,47 @@ def _prefill_where(torch, model, params, batch_in):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
-    calls = []
+    calls, ffn_calls = [], []
 
     def keep(q, k, v, **kw):
         calls.append((q, k, v, kw))
         return flash(q, k, v, **kw)
 
-    transformer.flash_attention = keep
-    try:
-        dev = device_activity(torch, lambda: model.prefill(params, batch_in))
-    finally:
-        transformer.flash_attention = flash
+    def keep_ffn(cfg, p, x):
+        ffn_calls.append((cfg, p, x))
+        return ffn(cfg, p, x)
+
+    dev = device_activity(torch, lambda: _with_patches(
+        [(m, "flash_attention", keep) for m in mods] + [(moe, "moe_ffn_apply", keep_ffn)],
+        lambda: model.prefill(params, batch_in)))
     attn = device_activity(torch, lambda: [flash(q, k, v, **kw) for q, k, v, kw in calls])
+    moe_dev = device_activity(torch, lambda: [ffn(*c) for c in ffn_calls]) if ffn_calls else {}
     q, k, v, kw = calls[0]
     shape = [list(t.shape) for t in (q, k, v)]
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flash_ms = event_ms(torch, lambda: flash(q, k, v, **kw))
-    sdpa_ms = event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-    sites = len(calls)
-    del calls, q, k, v, qt, kt, vt
+    sdpa_ms = event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=kw.get("causal", True),
+                                           enable_gqa=True))
+    sites, moe_sites = len(calls), len(ffn_calls)
+    del calls, ffn_calls, q, k, v, qt, kt, vt
     dev_ms = sum(ms for _, ms in dev.values())
     n_dev = sum(n for n, _ in dev.values())
     attn_ms = sum(ms for _, ms in attn.values())
+    moe_ms = sum(ms for _, ms in moe_dev.values())
     ssd_ms = sum(ms for name, (_, ms) in dev.items() if "ssd_scan" in name)
     top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:6]
     B, L = batch_in["tokens"].shape
+    positions = positions or L
     return dict(
-        wall_s=wall, ms_per_prefill=wall * 1e3, prompt_tokens_per_s=B * L / wall,
+        wall_s=wall, ms_per_prefill=wall * 1e3, prompt_positions=positions,
+        prompt_tokens_per_s=B * positions / wall,
         peak_mem_gb=peak, device_ms=dev_ms, device_ops=n_dev,
         device_busy_share=dev_ms / (wall * 1e3) if n_dev else None,
         ssd_scan_ms=ssd_ms, ssd_scan_share=ssd_ms / dev_ms if n_dev else None,
         attention_sites=sites, attention_ms=attn_ms,
         attention_share=attn_ms / dev_ms if n_dev else None,
+        moe_sites=moe_sites, moe_ms=moe_ms, moe_share=moe_ms / dev_ms if n_dev else None,
         attention_qkv_shapes=shape,
         flash_ms_per_call=flash_ms, sdpa_ms_per_call=sdpa_ms,
         top_device=[dict(name=k, ops=n, ms=ms) for k, (n, ms) in top],
@@ -902,7 +995,9 @@ def _say_where(label, line):
             "of device time; attention ({attention_sites} flash_attention calls, replayed alone) "
             "{attention_ms:.3f} ms = {attention_share:.4f} of device time; one call "
             "{flash_ms_per_call:.3f} ms, scaled_dot_product_attention on the same inputs "
-            "{sdpa_ms_per_call:.3f} ms".format(**line))
+            "{sdpa_ms_per_call:.3f} ms".format(**line)
+            + ("; MoE ({moe_sites} moe_ffn_apply calls, replayed alone) {moe_ms:.3f} ms = "
+               "{moe_share:.4f} of device time".format(**line) if line["moe_sites"] else ""))
         for d in line["top_device"]:
             say(f"[where]   {d['ms']:.3f} ms in {d['ops']} x {d['name'][:100]}")
     else:
@@ -931,33 +1026,41 @@ def _counts():
 
 def _with_patch(mod, name, fn, call):
     """``call()`` with ``mod.name`` replaced by ``fn``."""
-    kept = getattr(mod, name)
-    setattr(mod, name, fn)
+    return _with_patches([(mod, name, fn)], call)
+
+
+def _with_patches(patches, call):
+    """``call()`` with each ``(mod, name, fn)``'s ``mod.name`` replaced by ``fn``."""
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
     try:
         return call()
     finally:
-        setattr(mod, name, kept)
+        for mod, name, fn in reversed(kept):
+            setattr(mod, name, fn)
 
 
-def _f32_twin(torch, cfg):
+def _f32_twin(torch, cfg, **over):
     """The model in f32 with the weights of the same seed (the bf16 weights
-    before their rounding)."""
+    before their rounding), or of a config changed by ``over``."""
     from repro_torch.models.model_api import build_model
 
-    m = build_model(dataclasses.replace(cfg, dtype="float32"), "cuda")
+    m = build_model(dataclasses.replace(cfg, dtype="float32", **over), "cuda")
     return m, m.init(torch.Generator(device="cuda").manual_seed(0))
 
 
-def _cross_path(torch, m, p, prompt, seed):
+def _cross_path(torch, m, p, prompt, seed, extra=None, cache=None):
     """The JAX package's cross-path check: ``prompt`` tokens through
-    decode_step one by one against prefill; (max rel, rms rel, excess over
-    rtol |ref|, decode-kernel launches)."""
+    decode_step one by one against prefill (given ``extra`` inputs: whisper's
+    frames, whose cross K/V the caller wrote into ``cache``); (max rel, rms
+    rel, excess over rtol |ref|, decode-kernel launches)."""
     dec = _kernels()["decode_attn"]
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, m.cfg.vocab_size, (1, prompt), dtype=np.int64)).cuda()
-    pre = m.prefill(p, {"tokens": toks})
+    pre = m.prefill(p, {"tokens": toks, **(extra or {})})
     before = dec.launches
-    cache = m.init_cache(1, prompt)
+    cache = m.init_cache(1, prompt) if cache is None else cache
     for i in range(prompt):
         step, cache = m.decode_step(p, toks[:, i], cache, i)
     if not bool(torch.isfinite(step).all()):
@@ -1262,6 +1365,423 @@ def hybrid(torch, report):
              f"exceeds {CROSS_TOL['atol']} + {CROSS_TOL['rtol']} |ref| by {c_excess:.3e}")
 
 
+def _load_cut(torch, cell):
+    """``cell``'s model at its published widths (checked), cut in depth
+    alone, its weights drawn on the card from seed 0; (model, params, s)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_api import build_model
+
+    cfg = dataclasses.replace(get_config(cell["arch"]), **cell["cut"])
+    widths = {k: getattr(cfg, k) for k in cell["widths"]}
+    if widths != cell["widths"]:
+        fail(f"{cell['arch']} is not at its published widths: {widths}")
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    return model, params, time.perf_counter() - t0
+
+
+def _kv_slots(cfg, cache):
+    """Each attention block's (k, v) cache, in the order a prefill runs
+    the blocks (a moe group's dense blocks ahead of its MoE block)."""
+    if cfg.family != "moe":
+        return [(cache["k"][i], cache["v"][i]) for i in range(cfg.n_layers)]
+    slots = []
+    for g in range(cache["moe_k"].shape[0]):
+        for i in range(cfg.moe_every - 1):
+            slots.append((cache["dense_k"][g, i], cache["dense_v"][g, i]))
+        slots.append((cache["moe_k"][g], cache["moe_v"][g]))
+    return slots
+
+
+def _prefill_into_cache(torch, model, params, batch_in, cache):
+    """``model.prefill`` with each block's keys and values, as
+    flash_attention receives them (after RoPE), copied into the first
+    positions of its cache: the cache a serving loop holds after the
+    prompt, which decode then extends."""
+    from repro_torch.models import transformer
+
+    flash = transformer.flash_attention
+    slots = iter(_kv_slots(model.cfg, cache))
+
+    def keep(q, k, v, **kw):
+        ck, cv = next(slots)
+        ck[:, :k.shape[1]].copy_(k)
+        cv[:, :v.shape[1]].copy_(v)
+        return flash(q, k, v, **kw)
+
+    return _with_patch(transformer, "flash_attention", keep, lambda: model.prefill(params, batch_in))
+
+
+def _serve_held(torch, model, params, cache, first, start, n_tok, ctx, mods, sites, tag):
+    """Greedy decode of ``n_tok`` tokens through ``serve.decode`` from
+    ``cache`` (positions ``< start`` filled) and ``first``, with the kernel
+    counts set to 0 just before and read just after (``sites`` launches a
+    step, nothing else); then the held replay: every step again from the
+    kernel run's own state, once through the kernel (each attention site
+    held against the plain version on its inputs, SITE_TOL) and once
+    through the plain attention, the logits held to the serving limit on
+    every step where both chose the same experts (a router flip is a
+    discrete change, read and counted, not held); then ``profile_tokens``
+    steps under torch.profiler.  ``mods``: the modules whose
+    ``gqa_decode_attention`` the step calls (``transformer`` when None)."""
+    from repro_torch.kernels.decode_attn.ref import decode_attention
+    from repro_torch.launch import serve
+    from repro_torch.models import moe, transformer
+
+    mods = mods or (transformer,)
+
+    batch = first.shape[0]
+    start_cache = {k: v.clone() for k, v in cache.items()}
+    kept, decode_step = [], model.decode_step
+
+    def keep_logits(p, t, c, pos):
+        out, c = decode_step(p, t, c, pos)
+        kept.append(out)
+        return out, c
+
+    model.decode_step = keep_logits
+    _zero_counts(torch)
+    t0 = time.perf_counter()
+    seq = serve.decode(model, params, tokens=n_tok, batch=batch, ctx=ctx, cache=cache,
+                       start=start, first=first)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    model.decode_step = decode_step
+    c = _counts()
+    say(f"[{tag}] counts read after the {model.cfg.name} decode path: {c}")
+    if c != dict(s2d_conv=0, decode_attn=sites * n_tok, ssd_scan=0):
+        fail(f"the {model.cfg.name} decode path launched {c}, not decode_attn x {sites} x "
+             f"{n_tok} alone")
+    if tuple(seq.shape) != (batch, n_tok) or len(kept) != n_tok:
+        fail(f"{model.cfg.name} serve returned {tuple(seq.shape)} ids and {len(kept)} logits")
+    if not bool(((seq >= 0) & (seq < model.cfg.vocab_size)).all()):
+        fail(f"{model.cfg.name} serve returned ids outside the vocabulary")
+    if not all(bool(torch.isfinite(lg).all()) for lg in kept):
+        fail(f"{model.cfg.name} serve produced non-finite logits")
+    del cache
+
+    kernel_attention = mods[0].gqa_decode_attention
+    dispatch = moe.moe_dispatch
+    site_gaps, routes = [], []
+
+    def checked(q, k, v, pos, valid_len=None):
+        out = kernel_attention(q, k, v, pos, valid_len)
+        ref = decode_attention(q, k, v, pos)
+        site_gaps.append(torch.stack([(out.float() - ref.float()).abs().max(),
+                                      ref.float().abs().max()]))
+        return out
+
+    def plain(q, k, v, pos, valid_len=None):
+        return decode_attention(q, k, v, pos)
+
+    def recording(cfg, w, x):
+        d, cmb, aux = dispatch(cfg, w, x)
+        routes.append(d)
+        return d, cmb, aux
+
+    def step(attention, c, tok, i):
+        routes.clear()
+        out, _ = _with_patches([(m, "gqa_decode_attention", attention) for m in mods]
+                               + [(moe, "moe_dispatch", recording)],
+                               lambda: model.decode_step(params, tok, c, i))
+        return out, list(routes)
+
+    def gap(got, ref):
+        d = got - ref
+        return torch.stack([d.abs().max(), ref.abs().max(), d.pow(2).mean().sqrt(),
+                            ref.pow(2).mean().sqrt()])
+
+    stats, flips, rerun = [], [], []
+    state = {k: v.clone() for k, v in start_cache.items()}
+    tok = first
+    for j in range(n_tok):
+        before = {k: v.clone() for k, v in state.items()}
+        got, r_kernel = step(checked, state, tok, start + j)
+        ref, r_plain = step(plain, before, tok, start + j)
+        stats.append(gap(got, ref))
+        flips.append(torch.stack([torch.zeros((), dtype=torch.bool, device="cuda")]
+                                 + [(a != b).any() for a, b in zip(r_kernel, r_plain)]).any())
+        rerun.append((got - kept[j]).abs().max())
+        tok = seq[:, j]
+    del before, state, kept
+    d_max, r_max, d_rms, r_rms = torch.stack(stats).cpu().numpy().T
+    rel_max, rel_rms = d_max / r_max, d_rms / r_rms
+    flipped = torch.stack(flips).cpu().numpy()
+    sg = torch.stack(site_gaps).cpu().numpy()
+    site_rel = sg[:, 0] / sg[:, 1]
+    return dict(seq=seq, wall=wall, launches=c, start_cache=start_cache, rel_max=rel_max,
+                rel_rms=rel_rms, flipped=flipped, held=~flipped, site_rel=site_rel,
+                rerun=float(torch.stack(rerun).max().item()))
+
+
+def _decode_where(torch, model, params, start_cache, first, start, n_prof, ctx, wall, n_tok):
+    """``n_prof`` steps of the same decode under torch.profiler, from the
+    prompt's cache: device ms and ops a step, busy share, the kernel's
+    share, the top device activities."""
+    from repro_torch.launch import serve
+
+    c = {k: v.clone() for k, v in start_cache.items()}
+    dev = device_activity(torch, lambda: serve.decode(
+        model, params, tokens=n_prof, batch=first.shape[0], ctx=ctx, cache=c, start=start,
+        first=first))
+    dev_ms = sum(ms for _, ms in dev.values())
+    n_dev = sum(n for n, _ in dev.values())
+    dec_ms = sum(ms for name, (_, ms) in dev.items() if "decode_attn" in name)
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:6]
+    return dict(profiled_tokens=n_prof, device_ms_per_step=dev_ms / n_prof,
+                device_ops_per_step=n_dev / n_prof,
+                device_busy_share=dev_ms / n_prof / (wall / n_tok * 1e3) if n_dev else None,
+                decode_attn_share=dec_ms / dev_ms if n_dev else None,
+                top_device=[dict(name=k, ops=n, ms=ms) for k, (n, ms) in top])
+
+
+def _report_decode(tag, cfg, line, out):
+    """Print a decode cell's lines and hold its checks (``out``: the
+    replay's arrays from :func:`_serve_held`)."""
+    say("[{tag}] {arch} {dtype} decode B={batch} from position {start}, {tokens} tokens: "
+        "wall={wall_s:.3f} s ms/token={ms_per_token:.3f} tokens/s={tokens_per_s:.1f}; each "
+        "step from the kernel run's state, kernel vs plain attention: router flips on "
+        "{flip_steps} of {tokens} steps (read); on the other {held_steps}: worst "
+        "max|d|/max|ref| {worst_max_rel:.4f}, rms|d|/rms|ref| {worst_rms_rel:.4f} (median "
+        "{median_rms_rel:.4f}); over the flipped steps worst max {flip_worst_max_rel}, rms "
+        "{flip_worst_rms_rel}; every attention site ({sites_checked}): worst max|d|/max|ref| "
+        "{site_worst_rel:.4e}; the kernel stepped again: max|d| {rerun_max_abs_diff:.3e}"
+        .format(tag=tag, **line))
+    if line["device_busy_share"] is not None:
+        say("[where] {arch} decode ({profiled_tokens} steps profiled): device "
+            "{device_ms_per_step:.3f} ms a step = {device_busy_share:.4f} of the unprofiled wall "
+            "a step; {device_ops_per_step:.1f} device ops a step; decode_attn "
+            "{decode_attn_share:.4f} of device time".format(**line))
+        for d in line["top_device"]:
+            say(f"[where]   {d['ms']:.3f} ms in {d['ops']} x {d['name'][:100]}")
+    else:
+        say(f"[where] {cfg.name} decode: device time not measured "
+            "(torch.profiler recorded no device activity)")
+    if line["site_worst_rel"] > SITE_TOL:
+        fail(f"{cfg.name} decode: an attention site's kernel output is "
+             f"{line['site_worst_rel']:.4e} of max|ref| from the plain version's > {SITE_TOL}")
+    for name, r in (("max", out["rel_max"]), ("rms", out["rel_rms"])):
+        r = r[out["held"]]
+        if len(r) and not (r <= SERVE_TOL[name]).all():
+            fail(f"{cfg.name} serve, a step without router flips: logits {name}|d| = "
+                 f"{r.max():.4f} of {name}|ref| > {SERVE_TOL[name]}")
+
+
+def _decode_line(cfg, batch, start, n_tok, out, where):
+    held = out["held"]
+    fl = out["flipped"]
+    return dict(
+        arch=cfg.name, dtype=cfg.dtype, batch=batch, start=start, tokens=n_tok,
+        wall_s=out["wall"], ms_per_token=out["wall"] / n_tok * 1e3,
+        tokens_per_s=batch * n_tok / out["wall"], launches=out["launches"],
+        flip_steps=int(fl.sum()), held_steps=int(held.sum()),
+        worst_max_rel=float(out["rel_max"][held].max()) if held.any() else float("nan"),
+        worst_rms_rel=float(out["rel_rms"][held].max()) if held.any() else float("nan"),
+        median_rms_rel=float(np.median(out["rel_rms"][held])) if held.any() else float("nan"),
+        flip_worst_max_rel=float(out["rel_max"][fl].max()) if fl.any() else None,
+        flip_worst_rms_rel=float(out["rel_rms"][fl].max()) if fl.any() else None,
+        sites_checked=len(out["site_rel"]), site_worst_rel=float(out["site_rel"].max()),
+        rerun_max_abs_diff=out["rerun"], **where)
+
+
+def _f32_checks(torch, tag, cfg, f32_in, check_prompt, seed, mods=None, cross_extra=None,
+                cross_over=None, **twin):
+    """On the f32 twin: the prefill of ``f32_in`` against a replay through
+    naive_attention (last logits within DENSE_F32_TOL of max|ref|), and
+    decode vs prefill of a ``check_prompt``-token prompt (CROSS_TOL) on the
+    twin's weights under ``cross_over`` (a config change for that check).
+    ``cross_extra(model, params)`` -> (extra prefill inputs, cache) for
+    whisper.  ``mods``: the modules whose ``flash_attention`` the prefill
+    calls (``transformer`` when None)."""
+    from repro_torch.models import common, transformer
+    from repro_torch.models.model_api import build_model
+
+    mods = mods or (transformer,)
+
+    def naive(q, k, v, causal=True, q_chunk=None, k_chunk=None):
+        return common.naive_attention(q, k, v, causal=causal)
+
+    m, p = _f32_twin(torch, cfg, **twin)
+    ref = _with_patches([(mod, "flash_attention", naive) for mod in mods],
+                        lambda: m.prefill(p, f32_in))
+    d_max, d_rms, _ = logits_gap(m.prefill(p, f32_in), ref)
+    del ref
+    if cross_over:
+        m = build_model(dataclasses.replace(m.cfg, **cross_over), "cuda")
+    extra, cache = cross_extra(m, p) if cross_extra else (None, None)
+    c_max, c_rms, c_excess, c_launch = _cross_path(torch, m, p, check_prompt, seed, extra, cache)
+    del m, p, extra, cache
+    torch.cuda.empty_cache()
+    line = dict(f32_twin=dict(twin), f32_logits_max_rel=d_max, f32_logits_rms_rel=d_rms,
+                cross_prompt=check_prompt, cross_over=dict(cross_over or {}), cross_max_rel=c_max,
+                cross_rms_rel=c_rms, cross_max_excess=c_excess, cross_decode_attn_launches=c_launch)
+    say("[{tag}] f32 twin {f32_twin}: prefill vs the naive_attention replay max|d|/max|ref| "
+        "{f32_logits_max_rel:.3e}, rms {f32_logits_rms_rel:.3e}; decode vs prefill of a "
+        "{cross_prompt}-token prompt {cross_over} ({cross_decode_attn_launches} decode_attn "
+        "launches): max|d|/max|ref| {cross_max_rel:.4e}, rms {cross_rms_rel:.4e}, max(|d| - rtol "
+        "|ref|) {cross_max_excess:.3e}".format(tag=tag, **line))
+    if d_max > DENSE_F32_TOL:
+        fail(f"f32 {cfg.name} prefill vs the naive_attention replay: max|d|/max|ref| "
+             f"{d_max:.3e} > {DENSE_F32_TOL}")
+    if c_excess > CROSS_TOL["atol"]:
+        fail(f"f32 {cfg.name} decode vs prefill of a {check_prompt}-token prompt: |d| exceeds "
+             f"{CROSS_TOL['atol']} + {CROSS_TOL['rtol']} |ref| by {c_excess:.3e}")
+    return line, c_launch
+
+
+def _prefill_cell(torch, tag, model, params, batch_in, mods, positions, load_s, cache=None):
+    """The counted prefill (no kernel of the port: attention is
+    flash_attention, the products and the MoE einsums torch.matmul), with
+    the prompt's keys and values kept in ``cache`` where given, then its
+    readings."""
+    _zero_counts(torch)
+    t0 = time.perf_counter()
+    if cache is None:
+        logits = model.prefill(params, batch_in)
+    else:
+        logits = _prefill_into_cache(torch, model, params, batch_in, cache)
+    torch.cuda.synchronize()
+    first_wall = time.perf_counter() - t0
+    c = _counts()
+    say(f"[{tag}] counts read after the {model.cfg.name} prefill path: {c}")
+    if any(c.values()):
+        fail(f"the {model.cfg.name} prefill path launched kernels of the port: {c}")
+    B = batch_in["tokens"].shape[0]
+    if tuple(logits.shape) != (B, model.cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        fail(f"{model.cfg.name} prefill returned {tuple(logits.shape)} logits, or non-finite ones")
+    line = _prefill_where(torch, model, params, batch_in, mods, positions)
+    line.update(arch=model.cfg.name, dtype=model.cfg.dtype, batch=B, load_s=load_s,
+                first_wall_s=first_wall, launches=c)
+    say("[{tag}] {arch} {dtype} prefill B={batch}, {prompt_positions} positions a row: "
+        "load={load_s:.2f} s first={first_wall_s:.3f} s ms/prefill={ms_per_prefill:.3f} prompt "
+        "positions/s={prompt_tokens_per_s:.1f} peak={peak_mem_gb:.2f} GB".format(tag=tag, **line))
+    _say_where(f"{model.cfg.name} prefill", line)
+    return logits, line
+
+
+def whisper_cell(torch, report):
+    """Phase (viii) (k): whisper-base at its published widths and depth."""
+    from repro_torch.models import transformer, whisper
+
+    cell = WHISPER
+    model, params, load_s = _load_cut(torch, cell)
+    cfg, B = model.cfg, cell["batch"]
+    rng = np.random.default_rng(11)
+    frames = torch.from_numpy(rng.standard_normal((B, cfg.encoder_seq, cfg.d_model),
+                                                  dtype=np.float32)).cuda()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, cell["text"]),
+                                         dtype=np.int64)).cuda()
+    batch_in = {"frames": frames.to(torch.bfloat16), "tokens": toks}
+    mods = (transformer, whisper)
+    _, pre = _prefill_cell(torch, "whisper", model, params, batch_in, mods,
+                           cfg.encoder_seq + cell["text"], load_s)
+    # serving: the encoder over the frames, their cross K/V, then greedy decode
+    # from token 0 (as serve.run), self- and cross-attention through the kernel
+    cache = whisper.encdec_prefill_cross(cfg, params, whisper.encode(cfg, params,
+                                                                     batch_in["frames"]),
+                                         model.init_cache(B, cell["text"]))
+    first = torch.zeros((B,), dtype=torch.int32, device="cuda")
+    n_tok = cell["tokens"]
+    out = _serve_held(torch, model, params, cache, first, 0, n_tok, cell["text"], mods,
+                      2 * cfg.n_layers, "whisper")
+    where = _decode_where(torch, model, params, out["start_cache"], first, 0,
+                          cell["profile_tokens"], cell["text"], out["wall"], n_tok)
+    dec = _decode_line(cfg, B, 0, n_tok, out, where)
+    _report_decode("whisper", cfg, dec, out)
+    del model, params, out
+    torch.cuda.empty_cache()
+
+    def cross_extra(m, p):
+        f1 = frames[:1]
+        return {"frames": f1}, whisper.encdec_prefill_cross(
+            m.cfg, p, whisper.encode(m.cfg, p, f1), m.init_cache(1, cell["check_prompt"]))
+
+    f32, c_launch = _f32_checks(torch, "whisper", cfg, {"frames": frames[:2], "tokens": toks[:2]},
+                                cell["check_prompt"], 12, mods, cross_extra)
+    if c_launch != 2 * cfg.n_layers * cell["check_prompt"]:
+        fail(f"the whisper decode check launched the decode kernel {c_launch} times")
+    report["whisper"] = dict(prefill=pre, decode=dec, f32=f32)
+
+
+def vlm_cell(torch, report):
+    """Phase (viii) (l): llava-next-34b at its published widths, cut in depth."""
+    cell = VLM
+    model, params, load_s = _load_cut(torch, cell)
+    cfg, B = model.cfg, cell["batch"]
+    rng = np.random.default_rng(13)
+    patches = torch.from_numpy(rng.standard_normal((B, cfg.n_patches, cfg.d_model),
+                                                   dtype=np.float32)).cuda()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, cell["text"]),
+                                         dtype=np.int64)).cuda()
+    batch_in = {"patch_embeds": patches.to(torch.bfloat16), "tokens": toks}
+    prompt = cfg.n_patches + cell["text"]
+    ctx = prompt + cell["tokens"]
+    cache = model.init_cache(B, ctx)
+    logits, pre = _prefill_cell(torch, "vlm", model, params, batch_in, None, prompt, load_s,
+                                cache)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = _serve_held(torch, model, params, cache, first, prompt, cell["tokens"], ctx, None,
+                      cfg.n_layers, "vlm")
+    where = _decode_where(torch, model, params, out["start_cache"], first, prompt,
+                          cell["profile_tokens"], ctx, out["wall"], cell["tokens"])
+    dec = _decode_line(cfg, B, prompt, cell["tokens"], out, where)
+    _report_decode("vlm", cfg, dec, out)
+    del model, params, out, cache
+    torch.cuda.empty_cache()
+    f32, c_launch = _f32_checks(torch, "vlm", cfg, {"patch_embeds": patches[:2],
+                                                    "tokens": toks[:2]},
+                                cell["check_prompt"], 14)
+    if c_launch != cfg.n_layers * cell["check_prompt"]:
+        fail(f"the llava decode check launched the decode kernel {c_launch} times")
+    report["vlm"] = dict(prefill=pre, decode=dec, f32=f32)
+
+
+def moe_cell(torch, report, cell):
+    """Phase (viii) (m) and (n): an MoE model at its published widths, cut
+    in depth: prefill, decode from the prompt's cache, the f32 checks."""
+    model, params, load_s = _load_cut(torch, cell)
+    cfg, B, L = model.cfg, cell["batch"], cell["prompt"]
+    tag = f"moe {cell['label']}"
+    toks = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (B, L), dtype=np.int64)).cuda()
+    ctx = L + cell["tokens"]
+    cache = model.init_cache(B, ctx)
+    logits, pre = _prefill_cell(torch, tag, model, params, {"tokens": toks}, None, L, load_s,
+                                cache)
+    first = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = _serve_held(torch, model, params, cache, first, L, cell["tokens"], ctx, None,
+                      cfg.n_layers, tag)
+    where = _decode_where(torch, model, params, out["start_cache"], first, L,
+                          cell["profile_tokens"], ctx, out["wall"], cell["tokens"])
+    dec = _decode_line(cfg, B, L, cell["tokens"], out, where)
+    _report_decode(tag, cfg, dec, out)
+    del model, params, out, cache, logits
+    torch.cuda.empty_cache()
+    # the cross check with capacity for every token (E/K): the reference's
+    # capacity depends on a group's token count (the prompt's in prefill, one
+    # in a decode step), and where it drops a token the paths differ
+    E = cell["twin"].get("n_experts", cfg.n_experts)
+    f32, c_launch = _f32_checks(torch, tag, cfg, {"tokens": toks[:2]}, cell["check_prompt"], 16,
+                                cross_over=dict(capacity_factor=E / cfg.experts_per_token),
+                                **cell["twin"])
+    if c_launch != cfg.n_layers * cell["check_prompt"]:
+        fail(f"the {cfg.name} decode check launched the decode kernel {c_launch} times")
+    report[f"moe_{cell['label']}"] = dict(prefill=pre, decode=dec, f32=f32)
+
+
+def new_families(torch, report):
+    """Phase (viii): whisper (k), llava (l), llama4-maverick (m), qwen3-moe (n)."""
+    whisper_cell(torch, report)
+    phase_done("phase (viii) (k)")
+    vlm_cell(torch, report)
+    phase_done("phase (viii) (l)")
+    for cell in MOE_CELLS:
+        moe_cell(torch, report, cell)
+        phase_done(f"phase (viii) ({cell['label']})")
+
+
 def main():
     _CLOCK[:] = [time.perf_counter()] * 2
     import torch
@@ -1442,7 +1962,7 @@ def main():
             sdpa = torch.nn.functional.scaled_dot_product_attention
             row = dict(
                 shape=f"B{B}.L{L}.H{H}.Hkv{Hkv}.Dh{Dh}", B=B, L=L, H=H, Hkv=Hkv, Dh=Dh,
-                valid=valid, dtype=dn,
+                valid=valid, dtype=dn, path=NEW_PATH_SHAPES.get((B, L, H, Hkv, Dh)),
                 splits=dec_kernel.plan_splits(B, Hkv, valid, 2 * Dh * q.element_size(), n_sm),
                 max_abs_err=err, max_abs_ref=scale, tol=tol, ok=ok,
                 kernel_ms=graph_ms(torch, lambda: dec_kernel.decode_attn_cuda(q3, k, v, vl,
@@ -1452,7 +1972,7 @@ def main():
                 call_ms=paced_ms(torch, lambda: gqa_decode_attention(q, k, v, pos, vl)),
             )
             nbytes = (q.numel() + 2 * B * valid * Hkv * Dh + got.numel()) * q.element_size()
-            if (B, L) == (SERVE["batch"], SERVE["ctx"]):
+            if (B, L) == (SERVE["batch"], SERVE["ctx"]) or (B, L, H, Hkv, Dh) in NEW_PATH_SHAPES:
                 # serving shapes: also cold-L2, on copies of the cache twice the L2 in all
                 n_copies = int(-(-2 * L2_BYTES // nbytes))
                 copies = [(k.clone(), v.clone()) for _ in range(n_copies)]
@@ -2045,6 +2565,9 @@ def main():
     phase_done("phase (vii) (h)")
     hybrid(torch, report)
     phase_done("phase (vii) (i) and (j)")
+
+    # (viii) the encdec, vlm and moe families at their published widths
+    new_families(torch, report)
 
     # (v) the paper's method: no kernel of the port on this path
     _zero_counts(torch)

@@ -29,7 +29,10 @@
 //
 //   * bf16 goes through the tensor cores (mma.sync m16n8k16, f32 accumulation).
 //     Per 16 cache positions a warp computes the scores S = Q K^T with the G
-//     query heads as the rows of a 16-row A operand (rows >= G are zero), keeps
+//     query heads as the rows of a 16-row A operand (head h in row h; rows >= G
+//     are zero, so at G <= 8 the upper eight rows hold nothing and are skipped at
+//     compile time, and at G = 16 each thread carries the state of two heads,
+//     g and g + 8), keeps
 //     the online softmax on S's f32 fragments (rows are heads, so a row's max
 //     and sum take two shuffles), rounds P to bf16 in the registers that already
 //     hold it in the A operand's layout, and adds P V to O.  K and V come from
@@ -252,8 +255,9 @@ template <int DH, int G> struct MmaLayout {
     static constexpr int STAGE_BYTES = 2 * TILE * 2;
     static constexpr int STAGES = cmax(2, cmin(4, RING_BUDGET / STAGE_BYTES));
     static constexpr int CPR = DH * 2 / 16; // 16-byte chunks per cache row
+    static constexpr bool HI = G > 8;       // heads 8.. fill rows 8..15 of the A operand
     using Sm = Smem<G, DH, NW, STAGES * STAGE_BYTES>;
-    static_assert(G <= 8 && DH % 16 == 0, "heads fill rows 0..7 of the A operand");
+    static_assert(G <= 16 && DH % 16 == 0, "head h is row h of the 16-row A operand");
 };
 
 template <int DH, int G>
@@ -277,19 +281,26 @@ decode_attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     block_rows(valid_len, b, L, S, rank, start, end);
     const int n_tiles = (end - start + TR - 1) / TR;
 
-    // Q as the A operand, one per 16 dims: row g is head g (zero for g >= G);
-    // a[1] and a[3] (rows g + 8) are zero
+    // Q as the A operand, one per 16 dims: row r is head r (zero for r >= G);
+    // qa[kk][0..1] are row g (dims 2t, 2t + 8), qa[kk][2..3] row g + 8, which
+    // is zero, and left out of the registers, where G <= 8
+    constexpr bool HI = Lay::HI;
     const bf16* qp = q + ((long long)b * Hkv + kvh) * G * DH;
-    uint32_t qa[DH / 16][2];
+    const bool lo_ok = g < G, hi_ok = HI && g + 8 < G;
+    uint32_t qa[DH / 16][HI ? 4 : 2];
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
         const bf16* p = qp + g * DH + kk * 16 + 2 * t;
-        qa[kk][0] = g < G ? *reinterpret_cast<const uint32_t*>(p) : 0u;
-        qa[kk][1] = g < G ? *reinterpret_cast<const uint32_t*>(p + 8) : 0u;
+        qa[kk][0] = lo_ok ? *reinterpret_cast<const uint32_t*>(p) : 0u;
+        qa[kk][1] = lo_ok ? *reinterpret_cast<const uint32_t*>(p + 8) : 0u;
+        if constexpr (HI) {
+            qa[kk][2] = hi_ok ? *reinterpret_cast<const uint32_t*>(p + 8 * DH) : 0u;
+            qa[kk][3] = hi_ok ? *reinterpret_cast<const uint32_t*>(p + 8 * DH + 8) : 0u;
+        }
     }
-    // this thread's state for head g: max, its share of the sum, and the O
-    // fragments (dims d * 8 + 2t, + 1 in [d][0..1]; [d][2..3] are rows g + 8)
-    float m = MASKED, l = 0.f;
+    // this thread's state for head g (m, l; the O fragments' dims d * 8 + 2t,
+    // + 1 in acc[d][0..1]) and, where G > 8, head g + 8 (m_hi, l_hi; acc[d][2..3])
+    float m = MASKED, l = 0.f, m_hi = MASKED, l_hi = 0.f;
     float acc[DH / 8][4];
 #pragma unroll
     for (int d = 0; d < DH / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
@@ -333,41 +344,56 @@ decode_attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             uint32_t kb[4];
             ldmatrix_x4(kb, ks + (p0 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 +
                                 ((lane / 8) % 2) * 8);
-            const uint32_t a[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
+            uint32_t a[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
+            if constexpr (HI) {
+                a[1] = qa[kk][2];
+                a[3] = qa[kk][3];
+            }
             mma_bf16(s[0], a, kb);
             mma_bf16(s[1], a, kb + 2);
         }
         const int pos = start + i * TR + p0 + 2 * t;
-        float mt = m;
+        // the online softmax of one row's scores s[j][h2], s[j][h2 + 1] (row g
+        // at h2 = 0, row g + 8 at h2 = 2) -> its weights p[j][0..1]
+        auto row_softmax = [&](int h2, float& mr, float& lr, float (&p)[2][2]) {
+            float mt = mr;
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+            for (int j = 0; j < 2; ++j)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                s[j][e] *= scale_log2;
-                if (pos + 8 * j + e < end) mt = fmaxf(mt, s[j][e]);
+                for (int e = 0; e < 2; ++e) {
+                    s[j][h2 + e] *= scale_log2;
+                    if (pos + 8 * j + e < end) mt = fmaxf(mt, s[j][h2 + e]);
+                }
+            // a head's 16 positions lie in the 4 lanes of its row
+            mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+            mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+            const float corr = exp2f(mr - mt);
+            mr = mt;
+            lr *= corr;
+#pragma unroll
+            for (int d = 0; d < DH / 8; ++d) {
+                acc[d][h2] *= corr;
+                acc[d][h2 + 1] *= corr;
             }
-        // head g's 16 positions lie in the 4 lanes of its row
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-        const float corr = exp2f(m - mt);
-        m = mt;
-        l *= corr;
 #pragma unroll
-        for (int d = 0; d < DH / 8; ++d) {
-            acc[d][0] *= corr;
-            acc[d][1] *= corr;
-        }
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    p[j][e] = pos + 8 * j + e < end ? exp2f(s[j][h2 + e] - mr) : 0.f;
+                    lr += p[j][e];
+                }
+        };
         float p[2][2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                p[j][e] = pos + 8 * j + e < end ? exp2f(s[j][e] - m) : 0.f;
-                l += p[j][e];
-            }
+        row_softmax(0, m, l, p);
         // P as the A operand over these 16 positions: the score fragments'
         // layout is the A operand's, rounded to bf16
-        const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), 0u, pack_bf16(p[1][0], p[1][1]), 0u};
+        uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]), 0u, pack_bf16(p[1][0], p[1][1]), 0u};
+        if constexpr (HI) {
+            float ph[2][2];
+            row_softmax(2, m_hi, l_hi, ph);
+            pa[1] = pack_bf16(ph[0][0], ph[0][1]);
+            pa[3] = pack_bf16(ph[1][0], ph[1][1]);
+        }
 #pragma unroll
         for (int d = 0; d < DH / 8; d += 2) {
             // V rows (positions) are the B operand's k, transposed by ldmatrix:
@@ -382,21 +408,27 @@ decode_attn_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<0>();
     __syncthreads();
 
-    // the warps' states into `work` (over the ring), then the block's
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    if (g < G) {
-        if (t == 0) {
-            work[warp * G + g] = m;
-            work[NW * G + warp * G + g] = l;
-        }
-        float* sm_acc = work + 3 * NW * G + (warp * G + g) * DH;
+    // the warps' states into `work` (over the ring), then the block's: head h's
+    // (m, l) and acc [DH] from the thread row that holds it (h2 = 0: head g,
+    // h2 = 2: head g + 8)
+    auto put = [&](int h, int h2, float mr, float lr) {
+        lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+        lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+        if (h < G) {
+            if (t == 0) {
+                work[warp * G + h] = mr;
+                work[NW * G + warp * G + h] = lr;
+            }
+            float* sm_acc = work + 3 * NW * G + (warp * G + h) * DH;
 #pragma unroll
-        for (int d = 0; d < DH / 8; ++d) {
-            sm_acc[d * 8 + 2 * t] = acc[d][0];
-            sm_acc[d * 8 + 2 * t + 1] = acc[d][1];
+            for (int d = 0; d < DH / 8; ++d) {
+                sm_acc[d * 8 + 2 * t] = acc[d][h2];
+                sm_acc[d * 8 + 2 * t + 1] = acc[d][h2 + 1];
+            }
         }
-    }
+    };
+    put(g, 0, m, l);
+    if constexpr (HI) put(g + 8, 2, m_hi, l_hi);
     __syncthreads();
     block_merge<G, DH, NW>(work, blk);
     cluster_merge<bf16, G, DH>(blk, out + ((long long)b * Hkv + kvh) * G * DH);
@@ -650,13 +682,25 @@ int dispatch_group(const Args& a) {
     }
 }
 
+// the catalog's other groups, at Dh 128 only: llama4-maverick 40 heads over 8
+// KV heads (5), llava-next-34b 56 over 8 (7), qwen3-moe 64 over 4 (16)
+template <typename T>
+int dispatch_group_128(const Args& a) {
+    switch (a.G) {
+        case 5: return launch<T, 128, 5>(a);
+        case 7: return launch<T, 128, 7>(a);
+        case 16: return launch<T, 128, 16>(a);
+        default: return dispatch_group<T, 128>(a);
+    }
+}
+
 template <typename T>
 int dispatch_head_dim(const Args& a) {
     switch (a.Dh) {
         case 16: return dispatch_group<T, 16>(a);
         case 32: return dispatch_group<T, 32>(a);
         case 64: return dispatch_group<T, 64>(a);
-        case 128: return dispatch_group<T, 128>(a);
+        case 128: return dispatch_group_128<T>(a);
         // zamba2-2.7b: 32 heads over 32 KV heads of 80
         case 80: return a.G == 1 ? launch<T, 80, 1>(a) : (int)cudaErrorInvalidValue;
         // gemma-7b: 16 heads over 16 KV heads of 256
@@ -668,7 +712,8 @@ int dispatch_head_dim(const Args& a) {
 }  // namespace
 
 // q [B, Hkv*G, Dh], k / v [B, L, Hkv, Dh], valid_len [B] int32, out [B, Hkv*G, Dh];
-// `splits` (1..8) blocks share each (b, kv head)'s cache.
+// `splits` (1..8) blocks share each (b, kv head)'s cache.  (Dh, G): Dh 16, 32, 64
+// or 128 with G 1, 2, 4 or 8; Dh 80 and 256 with G 1; Dh 128 with G 5, 7 or 16.
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
 extern "C" int decode_attn(const void* q, const void* k, const void* v, const void* valid_len,
                            void* out, int B, int L, int Hkv, int G, int Dh, int splits,

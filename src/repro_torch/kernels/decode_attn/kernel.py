@@ -42,8 +42,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 GROUPS = (1, 2, 4, 8)
 #: (head dim, query heads per KV head) the kernel is built for: every pair of
-#: HEAD_DIMS x GROUPS, zamba2-2.7b's (80, 1) and gemma-7b's (256, 1)
-SUPPORTED = frozenset((d, g) for d in HEAD_DIMS for g in GROUPS) | {(80, 1), (256, 1)}
+#: HEAD_DIMS x GROUPS, zamba2-2.7b's (80, 1), gemma-7b's (256, 1), and at Dh 128
+#: llama4-maverick's group of 5, llava-next-34b's 7 and qwen3-moe's 16
+SUPPORTED = (frozenset((d, g) for d in HEAD_DIMS for g in GROUPS)
+             | {(80, 1), (256, 1), (128, 5), (128, 7), (128, 16)})
 MAX_SPLIT = 8  # blocks of a cluster, the portable maximum
 #: bytes per us that one block streams through its ring, that the whole card
 #: streams, and the time a cluster's merge adds (us): fitted on an H100 to the
@@ -136,7 +138,8 @@ def decode_attn_cuda(
     if (Dh, G) not in SUPPORTED:
         raise ValueError(
             f"decode_attn_cuda supports head dims {HEAD_DIMS} with groups H/Hkv in {GROUPS}, "
-            f"and head dims 80 and 256 with group 1 (got Dh={Dh}, G={G})"
+            f"head dims 80 and 256 with group 1, and head dim 128 with groups 5, 7 and 16 "
+            f"(got Dh={Dh}, G={G})"
         )
     if valid_len.dtype != torch.int32 or tuple(valid_len.shape) != (B,):
         raise ValueError(f"valid_len must be int32 [B={B}] (got {valid_len.dtype} "

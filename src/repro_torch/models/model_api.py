@@ -1,18 +1,21 @@
 """Unified model API of the torch port: family dispatch + the shape table.
 
 Port of the JAX package's ``models/model_api.py`` for serving.
-``build_model(cfg, device)`` returns a :class:`Model` bundle:
+``build_model(cfg, device)`` returns a :class:`Model` bundle for every
+family of the registry (dense, moe, ssm, hybrid, encdec, vlm):
 
   init(generator) -> params                  (weights drawn on the generator's device)
   prefill(params, batch) -> logits           (last-position logits, f32)
   init_cache(batch, max_len) -> cache
   decode_step(params, token, cache, pos) -> (logits, cache)   (cache updated in place)
 
-``SHAPES`` / :class:`ShapeSpec` are the JAX package's shape kinds, as data.
-The dense, ssm and hybrid families are ported, prefill and decode; the
-other families, ``loss`` and the sharding specs (``param_specs``,
-``cache_specs``, ``input_specs``, ``batch_specs``) come with later
-slices.
+``prefill`` takes ``batch["tokens"]``, and ``batch["frames"]`` (encdec:
+the stub frontend's frame embeddings) or ``batch["patch_embeds"]`` (vlm,
+optional: the stub vision tower's patch embeddings), as the JAX
+``Model.prefill`` does.  ``SHAPES`` / :class:`ShapeSpec` are the JAX
+package's shape kinds, as data.  ``loss`` and the sharding specs
+(``param_specs``, ``cache_specs``, ``input_specs``, ``batch_specs``) come
+with later slices.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Any, Callable, Dict, Tuple, Union
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import hybrid, mamba2, transformer
+from repro_torch.models import hybrid, mamba2, moe, transformer, vlm, whisper
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -44,13 +47,6 @@ SHAPES: Dict[str, ShapeSpec] = {
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
 
-#: families not ported yet -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "moe": "ROADMAP A6 (remaining model families: moe)",
-    "encdec": "ROADMAP A6 (remaining model families: encdec)",
-    "vlm": "ROADMAP A6 (remaining model families: vlm, its prefill with the patch embeddings)",
-}
-
 
 @dataclasses.dataclass
 class Model:
@@ -61,49 +57,50 @@ class Model:
     decode_step: Callable[..., Tuple[torch.Tensor, Params]]
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Forward over ``batch["tokens"] [B, L]`` -> last-position logits
-        ``[B, vocab]`` (f32).  Attention runs through ``flash_attention``,
-        every Mamba block's SSD scan through ``kernels.ssd_scan.ops.ssd_scan``."""
-        fam, tokens = self.cfg.family, batch["tokens"]
+        """Forward over ``batch["tokens"] [B, L]`` (after ``batch["frames"]``'s
+        encoder for encdec, after ``batch["patch_embeds"]`` for vlm) ->
+        last-position logits ``[B, vocab]`` (f32).  Attention runs through
+        ``flash_attention``, every Mamba block's SSD scan through
+        ``kernels.ssd_scan.ops.ssd_scan``."""
+        cfg, fam, tokens = self.cfg, self.cfg.family, batch["tokens"]
         if fam == "dense":
-            return transformer.dense_prefill(self.cfg, params, tokens)
+            return transformer.dense_prefill(cfg, params, tokens)
+        if fam == "vlm":
+            return vlm.vlm_prefill(cfg, params, tokens, batch.get("patch_embeds"))
+        if fam == "moe":
+            return moe.moe_prefill(cfg, params, tokens)
         if fam == "ssm":
-            return mamba2.ssm_prefill(self.cfg, params, tokens)
+            return mamba2.ssm_prefill(cfg, params, tokens)
         if fam == "hybrid":
-            return hybrid.hybrid_prefill(self.cfg, params, tokens)
+            return hybrid.hybrid_prefill(cfg, params, tokens)
+        if fam == "encdec":
+            return whisper.encdec_prefill(cfg, params, batch["frames"], tokens)
         raise ValueError(fam)
+
+
+#: family -> (init, init_cache, decode_step) of its module
+FAMILIES = {
+    "dense": (transformer.init_dense_model, transformer.dense_init_cache,
+              transformer.dense_decode_step),
+    "vlm": (vlm.init_vlm_model, vlm.vlm_init_cache, vlm.vlm_decode_step),
+    "moe": (moe.init_moe_model, moe.moe_init_cache, moe.moe_decode_step),
+    "ssm": (mamba2.init_ssm_model, mamba2.ssm_init_cache, mamba2.ssm_decode_step),
+    "hybrid": (hybrid.init_hybrid_model, hybrid.hybrid_init_cache, hybrid.hybrid_decode_step),
+    "encdec": (whisper.init_encdec_model, whisper.encdec_init_cache,
+               whisper.encdec_decode_step),
+}
 
 
 def build_model(cfg: ModelConfig, device: Union[str, torch.device, None] = None) -> Model:
     """The model bundle on ``device`` (the CUDA card when None)."""
-    fam = cfg.family
-    if fam in NOT_PORTED:
-        raise NotImplementedError(
-            f"family '{fam}' ({cfg.name}) is not ported to torch yet: {NOT_PORTED[fam]}"
-        )
-    if fam not in ("dense", "ssm", "hybrid"):
-        raise ValueError(f"unknown family '{fam}'")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family '{cfg.family}'")
+    init, init_cache, decode_step = FAMILIES[cfg.family]
     dev = resolve_device(device)
-    if fam == "hybrid":
-        return Model(
-            cfg,
-            dev,
-            init=lambda gen: hybrid.init_hybrid_model(gen, cfg),
-            init_cache=lambda B, L: hybrid.hybrid_init_cache(cfg, B, L, dev),
-            decode_step=lambda p, t, c, pos: hybrid.hybrid_decode_step(cfg, p, t, c, pos),
-        )
-    if fam == "ssm":
-        return Model(
-            cfg,
-            dev,
-            init=lambda gen: mamba2.init_ssm_model(gen, cfg),
-            init_cache=lambda B, L: mamba2.ssm_init_cache(cfg, B, L, dev),
-            decode_step=lambda p, t, c, pos: mamba2.ssm_decode_step(cfg, p, t, c, pos),
-        )
     return Model(
         cfg,
         dev,
-        init=lambda gen: transformer.init_dense_model(gen, cfg),
-        init_cache=lambda B, L: transformer.dense_init_cache(cfg, B, L, dev),
-        decode_step=lambda p, t, c, pos: transformer.dense_decode_step(cfg, p, t, c, pos),
+        init=lambda gen: init(gen, cfg),
+        init_cache=lambda B, L: init_cache(cfg, B, L, dev),
+        decode_step=lambda p, t, c, pos: decode_step(cfg, p, t, c, pos),
     )

@@ -171,11 +171,13 @@ def dense_block_decode(cfg, p, x1, cache_k, cache_v, pos, valid_len=None):
 
 
 def _stack(trees):
-    """Stack a list of equal-structure param trees along a new leading axis."""
+    """Stack a list of equal-structure param trees along a new leading axis
+    (one tree: a view of its own leaves, so a model cut to one layer or
+    group holds its weights once, not twice, while they are stacked)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+    return first.unsqueeze(0) if len(trees) == 1 else torch.stack(trees)
 
 
 def _layer(tree, i: int):

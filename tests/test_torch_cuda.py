@@ -19,8 +19,11 @@ runs on a machine that has only torch:
   weights to bf16), at the ``tests/test_kernels.py`` shapes, the serving
   path's shape, a ragged cache length, every split of a row's cache (1 to
   8 blocks a cluster), per-row valid lengths from 0, gemma-7b's head
-  shape (Dh = 256, one query head per KV head) and zamba2-2.7b's (Dh = 80,
-  one query head per KV head, with a CUDA-graph replay); serving goes
+  shape (Dh = 256, one query head per KV head), zamba2-2.7b's (Dh = 80,
+  one query head per KV head, with a CUDA-graph replay), llama4-maverick's,
+  llava-next-34b's and qwen3-moe's (Dh = 128, 5, 7 and 16 query heads per
+  KV head, with CUDA-graph replays, and the 16 heads kept apart), and
+  whisper-base's cross-attention (1500 valid positions); serving goes
   through the kernel;
 * the SSD-scan kernel (``csrc/ssd_scan.cu``) against the oracle
   ``ssd_naive`` (f32, ``tests/test_kernels.py``'s rel < 1e-5) and the
@@ -32,7 +35,10 @@ runs on a machine that has only torch:
   reduced mamba2 prefill through the kernel, one call per layer;
 * a reduced zamba2 (heads of 80) prefilling and decoding on the card
   through both kernels, equal to the CPU, and raising where the decode
-  kernel refuses its head shape (no fallback);
+  kernel refuses its head shape (no fallback); a reduced whisper, llava,
+  llama4 and qwen3-moe at their families' head shapes, prefilling and
+  decoding on the card, equal to the CPU, with one decode-kernel launch
+  per attention site and step;
 * ``simulate_batch`` on the card against the host SoA engine, fault-free
   and with a ``down`` window (the fault lane);
 * the device Terastal round (``core/scheduler_torch.terastal_round``, one
@@ -236,6 +242,11 @@ DECODE_SHAPES = [  # (B, L, H, Hkv, Dh, pos): tests/test_kernels.py, serving, ra
     (1, 1024, 8, 1, 128, 1000),  # a cluster of 8 blocks shares one row's cache
     (2, 300, 16, 16, 256, 299), (8, 2048, 16, 16, 256, 2047),  # gemma-7b's heads
     (8, 2048, 32, 32, 80, 255), (8, 2048, 32, 32, 80, 2047), (2, 77, 4, 4, 80, 76),  # zamba2's
+    (8, 2048, 40, 8, 128, 2047), (2, 77, 10, 2, 128, 76),  # llama4-maverick's heads (G 5)
+    (8, 2048, 56, 8, 128, 2047), (2, 77, 14, 2, 128, 76),  # llava-next-34b's (G 7)
+    (8, 2048, 64, 4, 128, 2047), (2, 77, 16, 1, 128, 76),  # qwen3-moe's (G 16)
+    (3, 300, 32, 2, 128, 0),  # G 16, one valid position
+    (8, 1500, 8, 8, 64, 1499), (8, 448, 8, 8, 64, 255),  # whisper-base's cross and self
 ]
 
 
@@ -335,6 +346,54 @@ def test_decode_kernel_at_zamba2_heads_replays_in_a_graph(card, dtype, splits):
     replayed = _replayed(lambda: decode_attn_cuda(q[:, 0], k, v, valid, splits=splits))
     assert torch.equal(replayed, first)
     _close(first[:, None], decode_attention(q, k, v, pos), dtype)
+
+
+@pytest.mark.parametrize("splits", [None, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv", [(40, 8), (56, 8), (64, 4)])
+def test_decode_kernel_at_the_moe_and_vlm_heads_replays_in_a_graph(card, H, Hkv, dtype, splits):
+    """llama4-maverick's (G 5), llava-next-34b's (G 7) and qwen3-moe's (G 16:
+    heads 8..15 in the upper rows of the bf16 A operand) heads of 128 at the
+    serving shape: the planner's split and a cluster of 3, against the plain
+    version, and a CUDA-graph replay bit-equal to an eager call."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attention
+
+    B, L, Dh, pos = 8, 4352, 128, 4150
+    q, k, v = _decode_inputs(card, B, L, H, Hkv, Dh, dtype, H)
+    valid = torch.full((B,), pos + 1, dtype=torch.int32, device=card)
+    first = decode_attn_cuda(q[:, 0], k, v, valid, splits=splits)
+    replayed = _replayed(lambda: decode_attn_cuda(q[:, 0], k, v, valid, splits=splits))
+    assert torch.equal(replayed, first)
+    _close(first[:, None], decode_attention(q, k, v, pos), dtype)
+
+
+def test_decode_kernel_keeps_the_upper_heads_apart(card):
+    """At G 16 each bf16 thread carries two heads (g and g + 8): give each
+    of the 16 query heads of a KV head its own one-hot query over a cache
+    whose values name their position, so that every head's output is the
+    value of its own best position; a swap or a mix of the two halves
+    shows."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attention
+
+    B, L, H, Hkv, Dh = 2, 64, 32, 2, 128
+    k = torch.zeros((B, L, Hkv, Dh), device=card)
+    k[:, torch.arange(16), :, torch.arange(16)] = 30.0  # position t's key: dim t
+    v = torch.arange(L, device=card, dtype=torch.float32)[None, :, None, None].expand(
+        B, L, Hkv, Dh).contiguous()
+    q = torch.zeros((B, 1, H, Dh), device=card)
+    for h in range(H):
+        q[:, 0, h, h % 16] = 30.0  # head h attends to position h mod 16 (weight ~1)
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+        valid = torch.full((B,), L, dtype=torch.int32, device=card)
+        got = decode_attn_cuda(qd[:, 0], kd, vd, valid).float()
+        want = decode_attention(qd, kd, vd, L - 1)[:, 0].float()
+        torch.cuda.synchronize()
+        heads = torch.arange(H, device=card) % 16
+        assert torch.allclose(got[:, :, 0], heads.float().expand(B, H), atol=0.05), dtype
+        _close(got.to(dtype)[:, None], want.to(dtype)[:, None], dtype)
 
 
 def test_decode_kernel_wrapper_rejects_what_it_does_not_take(card):
@@ -584,6 +643,62 @@ def test_zamba2_decode_on_the_card_raises_where_the_kernel_refuses(card, monkeyp
     with pytest.raises(ValueError, match="head dims"):
         model.decode_step(params, torch.zeros((2,), dtype=torch.int32, device=card),
                           model.init_cache(2, 8), 0)
+
+
+# (arch, config overrides): each family's head shape at reduced widths
+FAMILY_CARDS = [
+    ("whisper-base", dict(head_dim=64, n_heads=4, n_kv_heads=4)),
+    ("llava-next-34b", dict(head_dim=128, n_heads=14, n_kv_heads=2)),
+    ("llama4-maverick-400b-a17b", dict(head_dim=128, n_heads=10, n_kv_heads=2)),
+    ("qwen3-moe-235b-a22b", dict(head_dim=128, n_heads=16, n_kv_heads=1)),
+]
+
+
+@pytest.mark.parametrize("arch,over", FAMILY_CARDS)
+def test_new_families_prefill_and_decode_on_the_card_through_the_kernel(card, arch, over):
+    """A reduced whisper, llava, llama4 and qwen3-moe (f32, at their
+    families' head shapes: Dh 64 G 1, Dh 128 G 7, 5 and 16) prefill on the
+    card with no kernel launch and decode with one decode-kernel launch per
+    attention site and step (whisper: two a layer, self and cross); the
+    logits equal the same weights' on the CPU (tests/test_model_consistency.py's
+    atol 2e-4, rtol 2e-3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.models import whisper
+    from repro_torch.models.model_api import build_model
+
+    cfg = get_config(arch).reduced(dtype="float32", **over)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    host = build_model(cfg, device="cpu")
+    host_params = _to_cpu(params)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8), dtype=np.int32))
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model), dtype=np.float32))
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_patches, cfg.d_model), dtype=np.float32))
+    before = decode_attn_cuda.launches
+    got = model.prefill(params, {k: v.to(card) for k, v in batch.items()})
+    assert decode_attn_cuda.launches == before
+    want = host.prefill(host_params, batch)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-3)
+    cache, host_cache = model.init_cache(2, 8), host.init_cache(2, 8)
+    sites = cfg.n_layers
+    if cfg.family == "encdec":
+        cache = whisper.encdec_prefill_cross(cfg, params, whisper.encode(
+            cfg, params, batch["frames"].to(card)), cache)
+        host_cache = whisper.encdec_prefill_cross(cfg, host_params, whisper.encode(
+            cfg, host_params, batch["frames"]), host_cache)
+        sites = 2 * cfg.n_layers
+    for i in range(5):
+        got, cache = model.decode_step(params, toks[:, i].to(card), cache, i)
+        want, host_cache = host.decode_step(host_params, toks[:, i], host_cache, i)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-3)
+    assert decode_attn_cuda.launches == before + sites * 5
 
 
 def _to_cpu(tree):

@@ -130,12 +130,18 @@ def test_kernel_wrapper_never_takes_cpu_tensors():
     assert decode_attn_cuda.launches == before
 
 
-def test_decode_kernel_takes_every_dense_configs_head_shape():
-    """Every config of the registry whose family the port serves with
-    attention (dense, and hybrid's shared block) decodes through the kernel
-    on the card: its (head dim, query heads per KV head) is one the kernel
-    takes."""
-    served = [get_config(a) for a in ARCHS if get_config(a).family in ("dense", "hybrid")]
-    assert {c.name for c in served} >= {"gemma-7b", "llama3.2-1b", "zamba2-2.7b"}
-    for c in served:
-        assert (c.resolved_head_dim, c.n_heads // c.n_kv_heads) in SUPPORTED, c.name
+def test_decode_kernel_takes_every_attention_decoding_configs_head_shape():
+    """Every config of the registry whose family decodes with attention
+    (dense, vlm, moe, encdec: self- and cross-attention, and hybrid's
+    shared block; ssm alone has none) decodes through the kernel on the
+    card: its (head dim, query heads per KV head) is one the kernel takes."""
+    served = [get_config(a) for a in ARCHS if get_config(a).family != "ssm"]
+    assert {c.family for c in served} == {"dense", "vlm", "moe", "encdec", "hybrid"}
+    assert len(served) == len(ARCHS) - 1
+    shapes = {c.name: (c.resolved_head_dim, c.n_heads // c.n_kv_heads) for c in served}
+    assert shapes["llava-next-34b"] == (128, 7)
+    assert shapes["llama4-maverick-400b-a17b"] == (128, 5)
+    assert shapes["qwen3-moe-235b-a22b"] == (128, 16)
+    assert shapes["whisper-base"] == (64, 1)
+    for name, shape in shapes.items():
+        assert shape in SUPPORTED, name

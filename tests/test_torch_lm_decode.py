@@ -25,10 +25,11 @@ from repro.configs import get_config as j_get_config
 from repro.models.model_api import build_model as j_build_model
 
 from repro_torch.configs import get_config
+from repro_torch.configs.registry import ARCHS
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
 from repro_torch.launch import serve
-from repro_torch.models.model_api import NOT_PORTED, build_model
+from repro_torch.models.model_api import build_model
 
 ARCH = "llama3.2-1b"
 B, CTX, STEPS = 2, 16, 8
@@ -139,13 +140,32 @@ def test_serve_needs_the_card_unless_told_cpu():
         build_model(get_config(ARCH).reduced(dtype="float32"))
 
 
-@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "qwen3-moe-235b-a22b",
-                                  "whisper-base", "llava-next-34b"])
-def test_unported_families_name_their_roadmap_item(arch):
-    cfg = get_config(arch)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\d"):
-        build_model(cfg, device="cpu")
-    assert cfg.family in NOT_PORTED
+@pytest.mark.parametrize("arch", ARCHS)
+def test_every_registry_arch_builds_prefills_and_decodes(arch):
+    """``build_model`` takes every architecture of the registry: the reduced
+    config builds, prefills (with its family's frames or patch embeddings)
+    and decodes one step on the CPU, finite logits of the vocabulary's
+    width, without launching the decode kernel."""
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8), dtype=np.int32))
+    batch = {"tokens": toks}
+    dt = params["embed"]["emb"].dtype
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model), dtype=np.float32)).to(dt)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_patches, cfg.d_model), dtype=np.float32)).to(dt)
+    before = decode_attn_cuda.launches
+    logits = model.prefill(params, batch)
+    step, _ = model.decode_step(params, toks[:, 0], model.init_cache(2, 8), 0)
+    for out in (logits, step):
+        assert out.shape == (2, cfg.vocab_size) and out.dtype == torch.float32
+        assert bool(torch.isfinite(out).all())
+    assert decode_attn_cuda.launches == before
 
 
 def test_model_init_draws_the_jax_shapes_and_scales():
