@@ -188,9 +188,11 @@ Phases, each on lines of its own; any failure exits non-zero:
    decode exactly (sites x steps) decode-kernel launches and nothing else.
    Held: every replayed step, from the kernel run's own state, once through
    the kernel (every attention site within 2e-2 max|ref| of the plain
-   version on its inputs) and once through the plain attention, the logits
-   within (ii)'s serving limit on every step where both chose the same
-   experts (a router flip, a discrete change, is counted and read); in f32
+   version on its inputs) and once through the plain attention with the
+   kernel run's experts forced into every MoE site (``_forced_topk`` in
+   place of ``moe.moe_topk``), the logits within (ii)'s serving limit on every step (a
+   router flip, where the plain step's own top-k would differ, a discrete
+   change, is counted and read); in f32
    on a twin of the same seed (llama4's with 16 of its 128 experts: the f32
    bank does not fit): the prefill of two rows within 1e-4 of max|ref| of a
    ``naive_attention`` replay, and decode vs prefill of a 520-token prompt
@@ -202,6 +204,41 @@ Phases, each on lines of its own; any failure exits non-zero:
    ``scaled_dot_product_attention``; ms a token, tokens/s, device ops a
    step, busy share and the kernel's share over the first 32 (moe: 16)
    profiled steps;
+   (ix) after (viii), training through ``repro_torch.launch.train.run``
+   at the published widths and depths, bf16 weights, f32 AdamW moments,
+   remat ``full``, random weights of seed 0, B=8, L=2048 (``train_4k``,
+   B=256 L=4096, cut: flash_attention's saved f32 score blocks), 6 steps,
+   2 to warm up, no checkpoint: (o) ``llama3.2-1b`` (16 layers, d_model
+   2048, 32 heads over 8 of 64, vocab 128256; no kernel of the port) and
+   (p) ``mamba2-1.3b`` (48 layers), whose SSD kernel must be called
+   exactly 96 times a step (a forward and a remat recompute a layer, each
+   inside ``ops.SSDScan``) and the plain ``ssd_chunked`` never in a
+   forward (only in the Function's backward).  Held: the first loss in
+   (0.5 ln V, 2 ln V), every loss and grad norm finite, the optimiser's
+   step counter 1..6.  Read: ms a step, tokens/s, peak memory, every
+   loss; one more step under ``torch.profiler``: device time (its forward
+   and backward apart from its AdamW update), the busy share, AdamW's
+   share, attention's (its calls replayed alone, two forwards and a
+   backward a layer) and the SSD kernel's plus its backward's (four
+   backward calls replayed alone: ms a layer).  Held in (p): those four
+   calls' saved inputs (bf16 x, B, C; f32 log_a, dt) through the kernel,
+   each output within 2e-2 of max|ref| of the plain ``ssd_chunked`` on
+   the same inputs, a planted fault (the state dropped between chunks)
+   outside that, and the kernel, the plain version and the bound timed
+   at that shape.  Then, held: one mamba2 layer at its published widths
+   in f32 at (p)'s B=8, L=2048, the SSD Function's input and weight
+   gradients within 1e-4 of max|ref| of autograd through the plain
+   ``ssd_chunked``, and a planted fault (the kernel's output without the
+   Function) at least 100x that; the six families' reduced f32 train
+   step (llama3.2-1b, qwen3-moe, mamba2, zamba2, whisper-base, llava) on
+   the card against the CPU on the same weights and batch: loss and
+   every gradient within ``2e-4 + 2e-3 |ref|``, AdamW from the CPU's
+   gradients within 1e-6 of max|ref|; and, under
+   ``torch.use_deterministic_algorithms``, a reduced llama3.2-1b run of 6
+   steps checkpointed every 3, its last checkpoint deleted and the run
+   resumed, its losses within 1e-5 of the uninterrupted run's, and two
+   planted faults (the moments left at zero on resume; the data
+   restarted at step 0) at least 10x that;
    (v) the paper's method (no kernel of the port; the counts must stay
    0): Algorithm 1 (``core/budget_torch``) on the card for every model
    of every catalog scenario on its own platforms, one call each and
@@ -344,6 +381,51 @@ MOE_CELLS = [
 # each attention site of a replayed step: the kernel against the plain version on
 # the same inputs, max|d| <= 2e-2 max|ref| (section 2's bf16 kernel limit)
 SITE_TOL = 2e-2
+# (ix) training at the published widths and depths through launch.train.run:
+# bf16 weights, f32 AdamW moments, remat "full", random weights of seed 0, no
+# checkpoint (ckpt_every past the last step).  train_4k (B=256, L=4096) cut to
+# B=8, L=2048: flash_attention's f32 score blocks, which autograd saves, rule out
+# L=4096 (one [B, H, L, L] f32 tensor is 17 GB at B=8 for llama's 32 heads); L=2048
+# peaked at 39 GB in both cells (PERF.md section 4).  6 steps, 2 to warm up;
+# `ssd_calls`: SSD-kernel calls a step (a forward and a remat recompute a layer)
+TRAIN_CELLS = [
+    dict(label="o", arch="llama3.2-1b", batch=8, seq=2048, steps=6, warm=2, ssd_calls=0,
+         widths=dict(n_layers=16, d_model=2048, n_heads=32, n_kv_heads=8, head_dim=64,
+                     d_ff=8192, vocab_size=128256, dtype="bfloat16", remat=True,
+                     remat_policy="full")),
+    dict(label="p", arch="mamba2-1.3b", batch=8, seq=2048, steps=6, warm=2, ssd_calls=96,
+         widths=dict(n_layers=48, d_model=2048, ssm_state=128, ssm_headdim=64, ssm_chunk=256,
+                     vocab_size=50280, dtype="bfloat16", remat=True, remat_policy="full")),
+]
+# SSD calls of (p)'s profiled step kept (the Function's saved inputs): each
+# replayed through the kernel and the plain ssd_chunked, the kernel's output
+# held to SSD_TOL of its dtype (bf16 2e-2 max|ref|) with a planted fault (the
+# state dropped between chunks) read outside it; the backward replayed alone
+# to time it (ms a layer)
+TRAIN_SSD_REPLAY = 4
+# (ix) one mamba2 layer at its published widths in f32 at (p)'s B=8, L=2048
+# (eight SSD chunks): the SSD Function's input and weight gradients against
+# autograd through the plain ssd_chunked, max|d| <= 1e-4 max|ref| a leaf (the
+# kernel's forward differs from the plain one's by f32 summation order, 1e-4
+# at the prefill shape); a planted fault (the kernel's output without the
+# Function, so no gradient through the scan) must read at least 100x that
+TRAIN_LAYER = dict(batch=TRAIN_CELLS[1]["batch"], seq=TRAIN_CELLS[1]["seq"], tol=1e-4)
+# (ix) the six families' reduced f32 train step, card against CPU on the same
+# weights and batch: loss and every gradient within tests/torch_twins.py's TOL
+# (CROSS_TOL), and AdamW on the card from the CPU's gradients within 1e-6 of
+# max|ref| of the CPU's (the same f32 operations)
+TRAIN_TWINS = ("llama3.2-1b", "qwen3-moe-235b-a22b", "mamba2-1.3b", "zamba2-2.7b",
+               "whisper-base", "llava-next-34b")
+TRAIN_OPT_TOL = 1e-6
+# (ix) resume on the card, tests/test_ft.py's: reduced llama3.2-1b, 6 steps with
+# a checkpoint every 3, the step-6 checkpoint deleted and the run restarted; its
+# losses within the CPU twin's 1e-5 of the uninterrupted run's, both runs under
+# torch.use_deterministic_algorithms (else the loss's gather backward on the card
+# accumulates with atomics, and two runs differ in the last bits).  Two planted
+# faults, the moments left at zero on resume and the data restarted at step 0,
+# must each read at least 10x that (the first moves three steps' updates only:
+# 5.4e-4 on the CPU)
+RESUME = dict(arch="llama3.2-1b", steps=6, every=3, batch=2, seq=32, tol=1e-5)
 # (v) the paper's method.  Budgets vs numpy: tests/test_budget.py's rtol (the
 # card sums the reference total in another order than numpy).
 BUDGET_RTOL = 1e-5
@@ -533,6 +615,46 @@ def floor_times(x, w, out):
     if dn == "float32":
         t_ops = min(t_ops, 3 * ops / PEAK["tf32"])
     return nbytes / HBM_BPS * 1e3, t_ops * 1e3
+
+
+def ssd_floor(x, la, B, C, dt, Q):
+    """``t_bytes_ms``, ``t_ops_ms`` and ``cuda_core_bound_ms`` of one SSD
+    scan: x [Bt, L, H, P] and B, C [Bt, L, N] in their dtype, log_a and dt
+    f32, read once, y written once.  The products the function needs,
+    causal half only (Q(Q+1)/2 pairs j <= i): C B^T once per (b, chunk),
+    as B and C are shared by the heads, at the inputs' type (bf16 products
+    are exact in f32); scores xdt, C S and the state update per (b, h,
+    chunk) in f32 (xdt and the decays are f32).  An f32-accurate product
+    runs at the faster of the CUDA cores and split TF32 (three products at
+    the TF32 peak; two for C S where C is bf16, exact in TF32); the
+    CUDA-core-only figure is the bound that earlier versions of this script
+    printed."""
+    Bt, L, H, Pd = x.shape
+    N = B.shape[-1]
+    dn = str(x.dtype).split(".")[1]
+    nbytes = (2 * x.numel() * x.element_size() + (B.numel() + C.numel()) * B.element_size()
+              + (la.numel() + dt.numel()) * la.element_size())
+    n_chunks = Bt * (L // Q)
+    ops_cb = n_chunks * Q * (Q + 1) * N
+    ops_cs = n_chunks * H * 2 * Q * N * Pd
+    ops_f32 = n_chunks * H * (Q * (Q + 1) * Pd + 2 * Q * N * Pd) + ops_cs
+    f32_s = min(1 / PEAK["float32"], 3 / PEAK["tf32"])
+    cs_s = min(1 / PEAK["float32"], 2 / PEAK["tf32"]) if dn == "bfloat16" else f32_s
+    t_bytes = nbytes / HBM_BPS * 1e3
+    return dict(
+        t_bytes_ms=t_bytes,
+        t_ops_ms=(ops_cb * (1 / PEAK[dn] if dn == "bfloat16" else f32_s)
+                  + (ops_f32 - ops_cs) * f32_s + ops_cs * cs_s) * 1e3,
+        cuda_core_bound_ms=max(t_bytes, (ops_cb / PEAK[dn] + ops_f32 / PEAK["float32"]) * 1e3))
+
+
+def ssd_state_dropped(scan, x, la, B, C, dt, chunk):
+    """A planted SSD fault: ``scan`` with the state dropped at every chunk
+    boundary (no inter-chunk C S term), each chunk scanned as a row of its
+    own."""
+    n = x.shape[0] * (x.shape[1] // chunk)
+    rows = [t.contiguous().reshape(n, chunk, *t.shape[2:]) for t in (x, la, B, C, dt)]
+    return scan(*rows, chunk).reshape(x.shape)
 
 
 def _trial_fields(t):
@@ -1421,10 +1543,10 @@ def _serve_held(torch, model, params, cache, first, start, n_tok, ctx, mods, sit
     step, nothing else); then the held replay: every step again from the
     kernel run's own state, once through the kernel (each attention site
     held against the plain version on its inputs, SITE_TOL) and once
-    through the plain attention, the logits held to the serving limit on
-    every step where both chose the same experts (a router flip is a
-    discrete change, read and counted, not held); then ``profile_tokens``
-    steps under torch.profiler.  ``mods``: the modules whose
+    through the plain attention with the kernel run's experts forced into
+    every MoE site (``_forced_topk`` in place of ``moe.moe_topk``), the logits held to the
+    serving limit on every step; a router flip (the plain step's own top-k
+    differing, a discrete change) is counted and read.  ``mods``: the modules whose
     ``gqa_decode_attention`` the step calls (``transformer`` when None)."""
     from repro_torch.kernels.decode_attn.ref import decode_attention
     from repro_torch.launch import serve
@@ -1463,8 +1585,8 @@ def _serve_held(torch, model, params, cache, first, start, n_tok, ctx, mods, sit
     del cache
 
     kernel_attention = mods[0].gqa_decode_attention
-    dispatch = moe.moe_dispatch
-    site_gaps, routes = [], []
+    topk = moe.moe_topk
+    site_gaps, chosen, flips_now = [], [], []
 
     def checked(q, k, v, pos, valid_len=None):
         out = kernel_attention(q, k, v, pos, valid_len)
@@ -1476,17 +1598,24 @@ def _serve_held(torch, model, params, cache, first, start, n_tok, ctx, mods, sit
     def plain(q, k, v, pos, valid_len=None):
         return decode_attention(q, k, v, pos)
 
-    def recording(cfg, w, x):
-        d, cmb, aux = dispatch(cfg, w, x)
-        routes.append(d)
-        return d, cmb, aux
+    def recording(cfg, gates):
+        out = topk(cfg, gates)
+        chosen.append(out[2])
+        return out
 
-    def step(attention, c, tok, i):
-        routes.clear()
+    def forcing(cfg, gates):
+        # the kernel run's experts at this site; a flip is where the plain
+        # step's own top-k would differ
+        want = chosen.pop(0)
+        own = topk(cfg, gates)[2]
+        flips_now.append(torch.stack([(a != b).any() for a, b in zip(own, want)]).any())
+        return _forced_topk(gates, want)
+
+    def step(attention, routing, c, tok, i):
         out, _ = _with_patches([(m, "gqa_decode_attention", attention) for m in mods]
-                               + [(moe, "moe_dispatch", recording)],
+                               + [(moe, "moe_topk", routing)],
                                lambda: model.decode_step(params, tok, c, i))
-        return out, list(routes)
+        return out
 
     def gap(got, ref):
         d = got - ref
@@ -1498,11 +1627,15 @@ def _serve_held(torch, model, params, cache, first, start, n_tok, ctx, mods, sit
     tok = first
     for j in range(n_tok):
         before = {k: v.clone() for k, v in state.items()}
-        got, r_kernel = step(checked, state, tok, start + j)
-        ref, r_plain = step(plain, before, tok, start + j)
+        chosen.clear()
+        flips_now.clear()
+        got = step(checked, recording, state, tok, start + j)
+        ref = step(plain, forcing, before, tok, start + j)
+        if chosen:
+            fail(f"{model.cfg.name}: the plain replay routed {len(chosen)} sites fewer")
         stats.append(gap(got, ref))
         flips.append(torch.stack([torch.zeros((), dtype=torch.bool, device="cuda")]
-                                 + [(a != b).any() for a, b in zip(r_kernel, r_plain)]).any())
+                                 + flips_now).any())
         rerun.append((got - kept[j]).abs().max())
         tok = seq[:, j]
     del before, state, kept
@@ -1512,8 +1645,23 @@ def _serve_held(torch, model, params, cache, first, start, n_tok, ctx, mods, sit
     sg = torch.stack(site_gaps).cpu().numpy()
     site_rel = sg[:, 0] / sg[:, 1]
     return dict(seq=seq, wall=wall, launches=c, start_cache=start_cache, rel_max=rel_max,
-                rel_rms=rel_rms, flipped=flipped, held=~flipped, site_rel=site_rel,
+                rel_rms=rel_rms, flipped=flipped, site_rel=site_rel,
                 rerun=float(torch.stack(rerun).max().item()))
+
+
+def _forced_topk(gates, route):
+    """``moe.moe_topk``'s ``(gates, one-hots, indices)`` with the experts of
+    ``route`` (K index tensors ``[G,S]``, another run's choice) in place of
+    its argmax, each with this call's gate."""
+    import torch.nn.functional as F
+
+    g, sel_gate, sel_onehot = gates, [], []
+    for idx in route:
+        oh = F.one_hot(idx, gates.shape[-1]).float()
+        sel_gate.append((g * oh).sum(-1))
+        sel_onehot.append(oh)
+        g = g * (1.0 - oh)
+    return sel_gate, sel_onehot, list(route)
 
 
 def _decode_where(torch, model, params, start_cache, first, start, n_prof, ctx, wall, n_tok):
@@ -1542,10 +1690,10 @@ def _report_decode(tag, cfg, line, out):
     replay's arrays from :func:`_serve_held`)."""
     say("[{tag}] {arch} {dtype} decode B={batch} from position {start}, {tokens} tokens: "
         "wall={wall_s:.3f} s ms/token={ms_per_token:.3f} tokens/s={tokens_per_s:.1f}; each "
-        "step from the kernel run's state, kernel vs plain attention: router flips on "
-        "{flip_steps} of {tokens} steps (read); on the other {held_steps}: worst "
-        "max|d|/max|ref| {worst_max_rel:.4f}, rms|d|/rms|ref| {worst_rms_rel:.4f} (median "
-        "{median_rms_rel:.4f}); over the flipped steps worst max {flip_worst_max_rel}, rms "
+        "step from the kernel run's state, kernel vs plain attention, the plain step on the "
+        "kernel run's experts: every step worst max|d|/max|ref| {worst_max_rel:.4f}, "
+        "rms|d|/rms|ref| {worst_rms_rel:.4f} (median {median_rms_rel:.4f}); router flips "
+        "(read) on {flip_steps} of {tokens} steps, there worst max {flip_worst_max_rel}, rms "
         "{flip_worst_rms_rel}; every attention site ({sites_checked}): worst max|d|/max|ref| "
         "{site_worst_rel:.4e}; the kernel stepped again: max|d| {rerun_max_abs_diff:.3e}"
         .format(tag=tag, **line))
@@ -1563,23 +1711,20 @@ def _report_decode(tag, cfg, line, out):
         fail(f"{cfg.name} decode: an attention site's kernel output is "
              f"{line['site_worst_rel']:.4e} of max|ref| from the plain version's > {SITE_TOL}")
     for name, r in (("max", out["rel_max"]), ("rms", out["rel_rms"])):
-        r = r[out["held"]]
-        if len(r) and not (r <= SERVE_TOL[name]).all():
-            fail(f"{cfg.name} serve, a step without router flips: logits {name}|d| = "
+        if not (r <= SERVE_TOL[name]).all():
+            fail(f"{cfg.name} serve, step {int(np.argmax(r))}: logits {name}|d| = "
                  f"{r.max():.4f} of {name}|ref| > {SERVE_TOL[name]}")
 
 
 def _decode_line(cfg, batch, start, n_tok, out, where):
-    held = out["held"]
     fl = out["flipped"]
     return dict(
         arch=cfg.name, dtype=cfg.dtype, batch=batch, start=start, tokens=n_tok,
         wall_s=out["wall"], ms_per_token=out["wall"] / n_tok * 1e3,
         tokens_per_s=batch * n_tok / out["wall"], launches=out["launches"],
-        flip_steps=int(fl.sum()), held_steps=int(held.sum()),
-        worst_max_rel=float(out["rel_max"][held].max()) if held.any() else float("nan"),
-        worst_rms_rel=float(out["rel_rms"][held].max()) if held.any() else float("nan"),
-        median_rms_rel=float(np.median(out["rel_rms"][held])) if held.any() else float("nan"),
+        flip_steps=int(fl.sum()), worst_max_rel=float(out["rel_max"].max()),
+        worst_rms_rel=float(out["rel_rms"].max()),
+        median_rms_rel=float(np.median(out["rel_rms"])),
         flip_worst_max_rel=float(out["rel_max"][fl].max()) if fl.any() else None,
         flip_worst_rms_rel=float(out["rel_rms"][fl].max()) if fl.any() else None,
         sites_checked=len(out["site_rel"]), site_worst_rel=float(out["site_rel"].max()),
@@ -1780,6 +1925,440 @@ def new_families(torch, report):
     for cell in MOE_CELLS:
         moe_cell(torch, report, cell)
         phase_done(f"phase (viii) ({cell['label']})")
+
+
+def _train_cell(torch, report, cell):
+    """Phase (ix) (o) or (p): ``launch.train.run`` at the published widths,
+    the kernel counts set to 0 just before and read just after, every step's
+    loss, grad norm and step counter held; then one step profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.launch import train
+
+    tag, arch, steps = f"train {cell['label']}", cell["arch"], cell["steps"]
+    cfg = get_config(arch)
+    widths = {k: getattr(cfg, k) for k in cell["widths"]}
+    if widths != cell["widths"]:
+        fail(f"{arch} is not at its published widths: {widths}")
+    make, chunked, plain_grads = train.make_train_step, ssd_ref.ssd_chunked, ssd_ops.plain_grads
+    seen, plain = [], dict(calls=0, backward=0)
+
+    def recording(loss_fn, opt_cfg):
+        step = make(loss_fn, opt_cfg)
+
+        def wrapped(params, opt, batch):
+            params, opt, metrics = step(params, opt, batch)
+            seen.append(torch.stack([metrics["grad_norm"], opt.step.float()]))
+            return params, opt, metrics
+
+        return wrapped
+
+    def counted_plain(*a):
+        plain["calls"] += 1
+        return chunked(*a)
+
+    def counted_grads(*a):
+        plain["backward"] += 1
+        return plain_grads(*a)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(torch)
+    t0 = time.perf_counter()
+    out = _with_patches(
+        [(train, "make_train_step", recording), (ssd_ref, "ssd_chunked", counted_plain),
+         (ssd_ops, "plain_grads", counted_grads)],
+        lambda: train.run(arch, steps=steps, batch=cell["batch"], seq=cell["seq"], reduced=False,
+                          ckpt_every=steps + 1, log_every=1, device="cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    forward_plain = plain["calls"] - plain["backward"]
+    say(f"[{tag}] counts read after the {arch} training path: {c}; plain ssd_chunked in a "
+        f"forward: {forward_plain}, in the SSD backward: {plain['backward']}")
+    if c != dict(s2d_conv=0, decode_attn=0, ssd_scan=cell["ssd_calls"] * steps):
+        fail(f"the {arch} training path launched {c}, not ssd_scan x {cell['ssd_calls']} x "
+             f"{steps} alone")
+    if forward_plain:
+        fail(f"the {arch} training path ran the plain SSD scan {forward_plain} times in a forward")
+    losses, lnv = out["losses"], float(np.log(cfg.vocab_size))
+    gn, opt_steps = torch.stack(seen).cpu().numpy().T
+    if len(losses) != steps or not np.isfinite(losses).all() or not np.isfinite(gn).all():
+        fail(f"{arch} training: losses {losses}, grad norms {gn.tolist()}")
+    if not 0.5 * lnv < losses[0] < 2 * lnv:
+        fail(f"{arch} training: first loss {losses[0]:.4f} outside (0.5 ln V, 2 ln V) = "
+             f"({0.5 * lnv:.3f}, {2 * lnv:.3f})")
+    if opt_steps.tolist() != list(range(1, steps + 1)):
+        fail(f"{arch} training: the optimiser's step counter read {opt_steps.tolist()}")
+    B, L = cell["batch"], cell["seq"]
+    ms = float(np.mean(out["step_s"][cell["warm"]:])) * 1e3
+    line = dict(arch=arch, dtype=cfg.dtype, batch=B, seq=L, steps=steps, wall_s=wall,
+                step_ms=[t * 1e3 for t in out["step_s"]], ms_per_step=ms,
+                tokens_per_s=B * L / ms * 1e3, peak_mem_gb=peak, losses=losses,
+                grad_norms=gn.tolist(), launches=c)
+    say("[{tag}] {arch} {dtype} B={batch} L={seq}, {steps} steps ({warm} to warm up): "
+        "ms/step={ms_per_step:.3f} tokens/s={tokens_per_s:.1f} peak={peak_mem_gb:.2f} GB; "
+        "losses {lo}; grad norms {gno}".format(
+            tag=tag, warm=cell["warm"], lo=[round(x, 5) for x in losses],
+            gno=[round(x, 4) for x in gn.tolist()], **line))
+    line.update(_train_where(torch, cfg, out.pop("params"), cell, ms))
+    del out
+    torch.cuda.empty_cache()
+    report[f"train_{cell['label']}"] = line
+    return line
+
+
+def _train_where(torch, cfg, params, cell, ms_per_step):
+    """One more step of the same model under torch.profiler, its forward and
+    backward apart from its AdamW update; then its attention calls (o) or
+    SSD backward calls (p) replayed alone: the shares of device time."""
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import transformer
+    from repro_torch.models.model_api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+
+    model = build_model(cfg, "cuda")
+    batch = next(Pipeline(cfg, DataConfig(cell["batch"], cell["seq"], seed=1234),
+                          start_step=cell["steps"], device="cuda"))
+    opt_cfg = adamw.OptConfig(warmup_steps=max(1, cell["steps"] // 20), total_steps=cell["steps"])
+    opt = adamw.init_opt_state(params)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    flash, plain_grads = transformer.flash_attention, ssd_ops.plain_grads
+    attn_calls, ssd_calls, grads = [], [], []
+
+    def keep_flash(q, k, v, **kw):
+        attn_calls.append((q.detach(), k.detach(), v.detach(), kw))
+        return flash(q, k, v, **kw)
+
+    def keep_grads(inputs, needs, chunk, dy):
+        if len(ssd_calls) < TRAIN_SSD_REPLAY:
+            ssd_calls.append(([t.detach() for t in inputs], needs, chunk, dy.detach()))
+        return plain_grads(inputs, needs, chunk, dy)
+
+    def fwd_bwd():
+        loss = model.loss(params, batch)
+        grads.append(torch.autograd.grad(loss, leaves))
+
+    fb = device_activity(torch, lambda: _with_patches(
+        [(transformer, "flash_attention", keep_flash), (ssd_ops, "plain_grads", keep_grads)],
+        fwd_bwd))
+    it = iter(grads.pop())
+    g = tree_map(lambda _: next(it), params)
+    upd = device_activity(torch, lambda: adamw.adamw_update(opt_cfg, params, g, opt))
+    del g, opt, params, leaves
+    fb_ms = sum(ms for _, ms in fb.values())
+    upd_ms = sum(ms for _, ms in upd.values())
+    dev_ms, n_dev = fb_ms + upd_ms, sum(n for n, _ in fb.values()) + sum(n for n, _ in upd.values())
+    ssd_fwd_ms = sum(ms for name, (_, ms) in fb.items() if "ssd_scan" in name)
+    # attention: the forward's calls (the first n_layers; the remat recomputes
+    # repeat them) replayed forward and backward, and forward once more
+    first = attn_calls[:cfg.n_layers]
+    del attn_calls
+
+    def attn_fb():
+        for q, k, v, kw in first:
+            q, k, v = (t.requires_grad_(True) for t in (q.clone(), k.clone(), v.clone()))
+            o = flash(q, k, v, **kw)
+            torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+
+    def attn_f():
+        with torch.no_grad():
+            for q, k, v, kw in first:
+                flash(q, k, v, **kw)
+
+    attn_ms = (sum(ms for _, ms in device_activity(torch, attn_fb).values())
+               + sum(ms for _, ms in device_activity(torch, attn_f).values())) if first else 0.0
+    del first
+    ssd_bwd = device_activity(torch, lambda: [plain_grads(*a) for a in ssd_calls])
+    ssd_bwd_layer = (sum(ms for _, ms in ssd_bwd.values()) / len(ssd_calls)) if ssd_calls else 0.0
+    n_ssd_layers = cell["ssd_calls"] // 2
+    if cell["ssd_calls"] and len(ssd_calls) != TRAIN_SSD_REPLAY:
+        fail(f"the profiled {cfg.name} step kept {len(ssd_calls)} SSD calls, not "
+             f"{TRAIN_SSD_REPLAY}")
+    held = _train_ssd_held(torch, ssd_calls) if ssd_calls else None
+    del ssd_calls
+    torch.cuda.empty_cache()
+    top = sorted(fb.items(), key=lambda kv: -kv[1][1])[:6]
+    where = dict(
+        device_ms_per_step=dev_ms, device_ops_per_step=n_dev,
+        device_busy_share=dev_ms / ms_per_step if n_dev else None,
+        forward_backward_ms=fb_ms, optimizer_ms=upd_ms,
+        optimizer_share=upd_ms / dev_ms if n_dev else None,
+        attention_ms=attn_ms, attention_share=attn_ms / dev_ms if n_dev else None,
+        ssd_forward_ms=ssd_fwd_ms, ssd_backward_ms_per_layer=ssd_bwd_layer,
+        ssd_forward_ms_per_call=ssd_fwd_ms / cell["ssd_calls"] if cell["ssd_calls"] else 0.0,
+        ssd_share=(ssd_fwd_ms + ssd_bwd_layer * n_ssd_layers) / dev_ms if n_dev else None,
+        ssd_held=held, top_device=[dict(name=k, ops=n, ms=ms) for k, (n, ms) in top])
+    if n_dev:
+        say("[where] train {label} ({arch}, one step profiled): device {device_ms_per_step:.3f} ms "
+            "a step = {device_busy_share:.4f} of the unprofiled wall a step; {device_ops_per_step} "
+            "device ops; forward and backward {forward_backward_ms:.3f} ms, AdamW "
+            "{optimizer_ms:.3f} ms = {optimizer_share:.4f}; attention (its calls replayed alone, "
+            "two forwards and a backward a layer) {attention_ms:.3f} ms = {attention_share:.4f}; "
+            "SSD kernel {ssd_forward_ms:.3f} ms ({ssd_forward_ms_per_call:.4f} ms a call) + SSD "
+            "backward (plain recompute and autograd, replayed alone) "
+            "{ssd_backward_ms_per_layer:.3f} ms a layer = {ssd_share:.4f} of device time".format(
+                label=cell["label"], arch=cfg.name, **where))
+        for d in where["top_device"]:
+            say(f"[where]   {d['ms']:.3f} ms in {d['ops']} x {d['name'][:100]}")
+    else:
+        say(f"[where] train {cell['label']}: device time not measured "
+            "(torch.profiler recorded no device activity)")
+    return where
+
+
+def _train_ssd_held(torch, calls):
+    """Phase (ix) (p): the SSD kernel at the training path's own shape and
+    dtypes, on the inputs that calls of its profiled step gave it (the
+    Function's saved x, log_a, B, C, dt): each call's output held against
+    the plain ``ssd_chunked`` on the same inputs, a planted fault (the
+    state dropped between chunks) read outside the limit, and the kernel,
+    the plain version and the bound timed on the first call's inputs."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    def rel(got, ref):
+        return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+    sound = [rel(ssd_scan_cuda(*inputs, chunk), ssd_chunked(*inputs, chunk))
+             for inputs, _, chunk, _ in calls]
+    (x, la, B, C, dt), _, chunk, _ = calls[0]
+    planted = rel(ssd_state_dropped(ssd_scan_cuda, x, la, B, C, dt, chunk),
+                  ssd_chunked(x, la, B, C, dt, chunk))
+    dn = str(x.dtype).split(".")[1]
+    tol = SSD_TOL["bfloat16" if dn == "bfloat16" else "float32@prefill"]
+    (Bt, L, H, Pd), N = x.shape, B.shape[-1]
+    row = dict(shape=f"Bt{Bt}.L{L}.H{H}.P{Pd}.N{N}.Q{chunk}", dtypes=[
+        str(t.dtype).split(".")[1] for t in (x, la, B, C, dt)], calls=len(calls),
+        max_rel=max(sound), rel=sound, tol=tol, fault_rel=planted,
+        kernel_ms=graph_ms(torch, lambda: ssd_scan_cuda(x, la, B, C, dt, chunk), 5),
+        plain_ms=event_ms(torch, lambda: ssd_chunked(x, la, B, C, dt, chunk)),
+        library_ms=None)
+    row.update(ssd_floor(x, la, B, C, dt, chunk))
+    row["bound_ms"], row["bound_by"] = bound(row["t_bytes_ms"], row["t_ops_ms"])
+    say("[train] SSD kernel at (p)'s shape {shape} (x, log_a, B, C, dt in {dtypes}), {calls} "
+        "calls of the profiled step: max|d|/max|ref| vs the plain ssd_chunked {max_rel:.3e} "
+        "(limit {tol:.0e}); planted fault (state dropped between chunks) {fault_rel:.3e}; "
+        "kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} "
+        "({bound_by})".format(**row))
+    if max(sound) > tol:
+        fail(f"the SSD kernel at (p)'s shape is {max(sound):.3e} of max|ref| from the plain "
+             f"ssd_chunked (> {tol})")
+    if planted <= tol:
+        fail(f"the SSD limit {tol} at (p)'s shape passes the planted fault ({planted:.3e})")
+    return row
+
+
+def _train_layer_grads(torch, report):
+    """Phase (ix): one mamba2 layer at its published widths in f32 at (p)'s
+    batch and length, the SSD Function's input and weight gradients against
+    autograd through the plain ``ssd_chunked``, and the planted fault (no
+    Function) read."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.models import mamba2
+    from repro_torch.models.model_api import build_model
+    from repro_torch.models.transformer import _layer
+    from repro_torch.tree import tree_items, tree_leaves, tree_map
+
+    cell = TRAIN_LAYER
+    cfg = dataclasses.replace(get_config(SSM["arch"]), dtype="float32", n_layers=1)
+    block = _layer(build_model(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))["blocks"], 0)
+    rng = np.random.default_rng(21)
+    shape = (cell["batch"], cell["seq"], cfg.d_model)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+    r = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+
+    def grads(scan):
+        xs = x.clone().requires_grad_(True)
+        ps = tree_map(lambda t: t.detach().clone().requires_grad_(True), block)
+        y = _with_patch(mamba2, "ssd_scan", scan, lambda: mamba2.mamba_block_apply(cfg, ps, xs))
+        # the planted fault leaves the scan's inputs (A_log, dt_bias) without a gradient
+        return torch.autograd.grad((y * r).sum(), [xs] + tree_leaves(ps), allow_unused=True,
+                                   materialize_grads=True)
+
+    def detached(x_, la, B, C, dt, chunk):
+        return ssd_scan_cuda(*(t.contiguous() for t in (x_, la, B, C, dt)), chunk)
+
+    before = ssd_scan_cuda.launches
+    got = grads(ssd_ops.ssd_scan)
+    launched = ssd_scan_cuda.launches - before
+    ref = grads(ssd_chunked)
+    fault = grads(detached)
+
+    def rel(a, b):
+        return [((u - v).abs().max() / v.abs().max()).item() for u, v in zip(a, b)]
+
+    names = ["x"] + [k for k, _ in tree_items(block)]
+    sound, planted = rel(got, ref), rel(fault, ref)
+    worst = max(range(len(names)), key=lambda i: sound[i])
+    worst_fault = max(range(len(names)), key=lambda i: planted[i])
+    line = dict(batch=cell["batch"], seq=cell["seq"], launches=launched,
+                rel=dict(zip(names, sound)), fault_rel=dict(zip(names, planted)))
+    say(f"[train] SSD Function at one {cfg.name} layer, f32 B={cell['batch']} L={cell['seq']} "
+        f"({launched} kernel calls): gradients vs autograd through the plain ssd_chunked, worst "
+        f"max|d|/max|ref| {sound[worst]:.3e} ({names[worst]}); the planted fault (the kernel's "
+        f"output without the Function): worst {planted[worst_fault]:.3e} "
+        f"({names[worst_fault]})")
+    report["train_layer"] = line
+    if launched != 1:
+        fail(f"the mamba2 layer's SSD Function launched the kernel {launched} times, not once")
+    if sound[worst] > cell["tol"]:
+        fail(f"SSD Function gradient of {names[worst]}: max|d|/max|ref| {sound[worst]:.3e} > "
+             f"{cell['tol']}")
+    if planted[worst_fault] < 100 * cell["tol"]:
+        fail(f"the planted SSD backward fault reads only {planted[worst_fault]:.3e}")
+
+
+def _train_twins(torch, report):
+    """Phase (ix): the six families' reduced f32 train step on the card
+    against the same step on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.models.model_api import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+
+    rows = {}
+    for arch in TRAIN_TWINS:
+        cfg = get_config(arch).reduced(dtype="float32")
+        p_cpu = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+        host = synth_batch(cfg, DataConfig(global_batch=4, seq_len=48, seed=5), 0)
+
+        def loss_grads(dev, params):
+            m = build_model(cfg, dev)
+            leaves = tree_leaves(params)
+            for t in leaves:
+                t.requires_grad_(True)
+            loss = m.loss(params, {k: torch.from_numpy(v).to(dev) for k, v in host.items()})
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        p_card = tree_map(lambda t: t.detach().cuda(), p_cpu)
+        before = ssd_scan_cuda.launches
+        l_card, g_card = loss_grads("cuda", p_card)
+        launched = ssd_scan_cuda.launches - before
+        l_cpu, g_cpu = loss_grads("cpu", p_cpu)
+        excess = max(((a.cpu() - b).abs() - CROSS_TOL["rtol"] * b.abs()).max().item()
+                     for a, b in zip(g_card, g_cpu))
+        loss_gap = abs(l_card.item() - l_cpu.item())
+        # AdamW on both devices from the CPU's gradients
+        opt_cfg = adamw.OptConfig(warmup_steps=1, total_steps=10)
+
+        def update(dev):
+            p = tree_map(lambda t: t.detach().to(dev, copy=True), p_cpu)
+            it = iter(g_cpu)
+            g = tree_map(lambda _: next(it).to(dev), p)
+            return tree_leaves(adamw.adamw_update(opt_cfg, p, g, adamw.init_opt_state(p))[0])
+
+        opt_gap = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
+                      for a, b in zip(update("cuda"), update("cpu")))
+        rows[arch] = dict(loss_card=l_card.item(), loss_cpu=l_cpu.item(), loss_gap=loss_gap,
+                          grad_max_excess=excess, ssd_launches=launched, opt_max_rel=opt_gap)
+        say(f"[train] twin {cfg.name} ({cfg.family}): loss card {l_card.item():.6f} cpu "
+            f"{l_cpu.item():.6f}; every gradient max(|d| - rtol |ref|) {excess:.3e}; AdamW on "
+            f"the CPU's gradients max|d|/max|ref| {opt_gap:.3e}; SSD-kernel calls {launched}")
+        want_ssd = 2 * cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+        if launched != want_ssd:
+            fail(f"the reduced {arch} step called the SSD kernel {launched} times, not {want_ssd}")
+        if loss_gap > CROSS_TOL["atol"] + CROSS_TOL["rtol"] * abs(l_cpu.item()):
+            fail(f"reduced {arch} train step: loss on the card {l_card.item()} vs CPU "
+                 f"{l_cpu.item()}")
+        if excess > CROSS_TOL["atol"]:
+            fail(f"reduced {arch} train step: a gradient exceeds the twins' TOL by {excess:.3e}")
+        if opt_gap > TRAIN_OPT_TOL:
+            fail(f"reduced {arch}: AdamW on the card is {opt_gap:.3e} of max|ref| from the CPU's")
+    report["train_twins"] = rows
+
+
+def _train_resume(torch, report):
+    """Phase (ix): a reduced run on the card, checkpointed, its tail lost
+    and resumed, against the uninterrupted run, in deterministic mode; then
+    the same resume with each planted fault."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.runtime.ft import Supervisor
+    from repro_torch.tree import tree_map
+
+    cell = RESUME
+    kw = dict(steps=cell["steps"], batch=cell["batch"], seq=cell["seq"], reduced=True,
+              ckpt_every=cell["every"], log_every=100, device="cuda")
+    restore, pipeline = Supervisor.restore, train.Pipeline
+
+    def moments_lost(self, step, like, device=None):
+        state = restore(self, step, like, device)
+        opt = state["opt"]
+        return dict(state, opt=OptState(opt.step, tree_map(torch.zeros_like, opt.m),
+                                        tree_map(torch.zeros_like, opt.v)))
+
+    def data_from_zero(cfg, dcfg, start_step=0, device=None):
+        return pipeline(cfg, dcfg, start_step=0, device=device)
+
+    def gap(losses, tail):
+        return (float(np.max(np.abs(np.subtract(losses, tail))))
+                if len(losses) == len(tail) else float("inf"))
+
+    # deterministic cuBLAS needs its workspace setting in the environment
+    kept = (torch.are_deterministic_algorithms_enabled(), os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            whole = train.run(cell["arch"], ckpt_dir=f"{d}/whole", **kw)
+            tail, gaps = whole["losses"][cell["every"]:], {}
+            for name, patches in (("sound", []), ("moments_lost", [(Supervisor, "restore",
+                                                                    moments_lost)]),
+                                  ("data_from_zero", [(train, "Pipeline", data_from_zero)])):
+                shutil.copytree(f"{d}/whole", f"{d}/{name}")
+                shutil.rmtree(f"{d}/{name}/step_{cell['steps']:08d}")  # the "crash" lost the tail
+                resumed = _with_patches(patches, lambda: train.run(
+                    cell["arch"], ckpt_dir=f"{d}/{name}", **kw))
+                gaps[name] = gap(resumed["losses"], tail)
+    finally:
+        torch.use_deterministic_algorithms(kept[0])
+        if kept[1] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = kept[1]
+    say(f"[train] resume on the card (reduced {cell['arch']}, {cell['steps']} steps, a checkpoint "
+        f"every {cell['every']}, the last lost; deterministic algorithms): {len(tail)} steps rerun, "
+        f"losses max|d| {gaps['sound']:.3e} from the uninterrupted run's (limit {cell['tol']:.0e}); "
+        f"planted faults: moments left at zero {gaps['moments_lost']:.3e}, data restarted at "
+        f"step 0 {gaps['data_from_zero']:.3e}")
+    report["train_resume"] = dict(steps_rerun=len(tail), max_abs_diff=gaps["sound"],
+                                  fault_moments_lost=gaps["moments_lost"],
+                                  fault_data_from_zero=gaps["data_from_zero"])
+    if gaps["sound"] > cell["tol"]:
+        fail(f"the resumed run's losses are {gaps['sound']:.3e} from the uninterrupted run's "
+             f"(> {cell['tol']})")
+    for name in ("moments_lost", "data_from_zero"):
+        if gaps[name] < 10 * cell["tol"]:
+            fail(f"the planted resume fault {name} reads only {gaps[name]:.3e}")
+
+
+def train_path(torch, report):
+    """Phase (ix): llama3.2-1b (o) and mamba2-1.3b (p) trained at full width
+    through ``launch.train.run``, then the checks of the training path."""
+    for cell in TRAIN_CELLS:
+        _train_cell(torch, report, cell)
+        phase_done(f"phase (ix) ({cell['label']})")
+    _train_layer_grads(torch, report)
+    _train_twins(torch, report)
+    _train_resume(torch, report)
+    phase_done("phase (ix) checks")
 
 
 def main():
@@ -2057,28 +2636,8 @@ def main():
                 library_ms=None,  # no single PyTorch call computes the SSD scan
                 call_ms=paced_ms(torch, lambda: ssd_scan(x, la, B, C, dt, Q), reps, 1),
             )
-            nbytes = (2 * x.numel() * x.element_size() + (B.numel() + C.numel()) * B.element_size()
-                      + (la.numel() + dt.numel()) * la.element_size())
-            # the products the function needs, causal half only (Q(Q+1)/2 pairs j <= i):
-            # C B^T once per (b, chunk), as B and C are shared by the heads, at the
-            # inputs' type (bf16 products are exact in f32); scores xdt, C S and the
-            # state update per (b, h, chunk) in f32 (xdt and the decays are f32).  An
-            # f32-accurate product runs at the faster of the CUDA cores and split TF32
-            # (three products at the TF32 peak; two for C S where C is bf16, exact in
-            # TF32); the CUDA-core-only figure is the bound that earlier versions of
-            # this script printed.
-            n_chunks = Bt * (L // Q)
-            ops_cb = n_chunks * Q * (Q + 1) * N
-            ops_cs = n_chunks * H * 2 * Q * N * Pd
-            ops_f32 = n_chunks * H * (Q * (Q + 1) * Pd + 2 * Q * N * Pd) + ops_cs
-            f32_s = min(1 / PEAK["float32"], 3 / PEAK["tf32"])
-            cs_s = min(1 / PEAK["float32"], 2 / PEAK["tf32"]) if dn == "bfloat16" else f32_s
-            row["t_bytes_ms"] = nbytes / HBM_BPS * 1e3
-            row["t_ops_ms"] = (ops_cb * (1 / PEAK[dn] if dn == "bfloat16" else f32_s)
-                               + (ops_f32 - ops_cs) * f32_s + ops_cs * cs_s) * 1e3
+            row.update(ssd_floor(x, la, B, C, dt, Q))
             row["bound_ms"], row["bound_by"] = bound(row["t_bytes_ms"], row["t_ops_ms"])
-            row["cuda_core_bound_ms"] = max(
-                row["t_bytes_ms"], (ops_cb / PEAK[dn] + ops_f32 / PEAK["float32"]) * 1e3)
             row["path"] = SSD_PATHS.get((Bt, L, H, Pd, N, Q))
             ssd_rows.append(row)
             say("[kernel] ssd_scan {shape} {dtype} max_abs_err={max_abs_err:.3e} tol={tol:.3e} "
@@ -2427,12 +2986,8 @@ def main():
     def plain_scan(x, la, B, C, dt, chunk):
         return ssd_chunked(x, la, B, C, dt, chunk)
 
-    # a planted fault: the kernel with the state dropped at every chunk boundary
-    # (no inter-chunk C S term), each chunk scanned as a row of its own
     def state_dropped(x, la, B, C, dt, chunk):
-        n = x.shape[0] * (x.shape[1] // chunk)
-        rows = [t.contiguous().reshape(n, chunk, *t.shape[2:]) for t in (x, la, B, C, dt)]
-        return ssd_kernel.ssd_scan_cuda(*rows, chunk).reshape(x.shape)
+        return ssd_state_dropped(ssd_kernel.ssd_scan_cuda, x, la, B, C, dt, chunk)
 
     ref = prefill_with(plain_scan, model, params, batch_in)
     torch.cuda.synchronize()
@@ -2568,6 +3123,9 @@ def main():
 
     # (viii) the encdec, vlm and moe families at their published widths
     new_families(torch, report)
+
+    # (ix) training at the published widths, then the training path's checks
+    train_path(torch, report)
 
     # (v) the paper's method: no kernel of the port on this path
     _zero_counts(torch)

@@ -1,11 +1,19 @@
 """Public wrapper of the SSD mixer: the chunked scan behind one switch.
 
 Port of the JAX package's ``kernels/ssd_scan/ops.py``.  The model's
-prefill (``models.mamba2.mamba_block_apply``) calls :func:`ssd_scan`:
+prefill and its training forward (``models.mamba2.mamba_block_apply``)
+call :func:`ssd_scan`:
 
-* a CPU tensor goes to the plain blocked version (:func:`.ref.ssd_chunked`);
+* a CPU tensor goes to the plain blocked version (:func:`.ref.ssd_chunked`),
+  which autograd differentiates as it is;
 * a CUDA tensor goes to the hand-written kernel (:mod:`.kernel`), which
-  launches or raises.  There is no fallback.
+  launches or raises.  There is no fallback.  While autograd records
+  (grad enabled and an input requiring grad) the kernel runs inside
+  :class:`SSDScan`, whose backward is the gradient of the plain
+  ``ssd_chunked`` recomputed from the saved inputs: the function the JAX
+  package differentiates, since it has no backward kernel.  So a CUDA
+  scan under grad always returns a tensor with a ``grad_fn``, and no
+  CUDA tensor reaches the plain version in a forward.
 
 The JAX switch's ``backend`` and ``interpret`` choices have no
 counterpart: the plain version and the oracle are called from
@@ -14,9 +22,41 @@ counterpart: the plain version and the oracle are called from
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+
+def plain_grads(inputs: Sequence[torch.Tensor], needs: Sequence[bool], chunk: int,
+                dy: torch.Tensor):
+    """Gradients of ``ref.ssd_chunked`` at ``inputs = (x, log_a, B, C,
+    dt)`` against the output gradient ``dy``: the forward recomputed on
+    detached copies under ``torch.enable_grad()``, then
+    ``torch.autograd.grad``; None where ``needs`` is false."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        y = ssd_chunked(*xs, chunk)
+        wanted = [t for t in xs if t.requires_grad]
+        got = iter(torch.autograd.grad(y, wanted, dy) if wanted else ())
+    return tuple(next(got) if n else None for n in needs)
+
+
+class SSDScan(torch.autograd.Function):
+    """The kernel's forward under autograd; the plain version's backward."""
+
+    @staticmethod
+    def forward(ctx, x, log_a, B, C, dt, chunk):
+        ctx.save_for_backward(x, log_a, B, C, dt)
+        ctx.chunk = chunk
+        return ssd_scan_cuda(x, log_a, B, C, dt, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return plain_grads(ctx.saved_tensors, ctx.needs_input_grad[:5], ctx.chunk, dy) + (None,)
 
 
 def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
@@ -27,5 +67,7 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor, C: torch.Ten
 
         return ssd_chunked(x, log_a, B, C, dt, chunk)
     # the model hands in views of its (x, B, C) projection
-    return ssd_scan_cuda(x.contiguous(), log_a.contiguous(), B.contiguous(),
-                         C.contiguous(), dt.contiguous(), chunk)
+    args = tuple(t.contiguous() for t in (x, log_a, B, C, dt))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return SSDScan.apply(*args, chunk)
+    return ssd_scan_cuda(*args, chunk)

@@ -1,1 +1,1 @@
-"""Launchers of the torch port: so far the serving entry point."""
+"""Launchers of the torch port: the serving and the training entry points."""

@@ -1,1 +1,1 @@
-"""Model zoo of the torch port: so far the dense decoder's decode path."""
+"""Model zoo of the torch port: every family of the registry, prefill, decode and loss."""

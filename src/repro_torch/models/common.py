@@ -1,31 +1,88 @@
-"""Shared torch building blocks: norms, RoPE, GQA attention (prefill and decode).
+"""Shared torch building blocks: norms, RoPE, GQA attention, the chunked loss, remat.
 
-Port of the parts of the JAX package's ``models/common.py`` that prefill
-and a decode step run.  Parameters are plain dicts of tensors in the JAX
-layouts (``w [d_in, d_out]``, ``emb [vocab, d]``, ``scale [d]``), made by
-the ``init_*`` helpers from an explicit ``torch.Generator`` on the target
-device (the numbers differ from ``jax.random``'s; the tests draw weights
-with numpy and hand the same arrays to both packages).  Compute runs in
-the parameters' dtype with f32 where the JAX package uses it: norm
-statistics, RoPE phases, attention scores and softmax, the GLU gate.
+Port of the JAX package's ``models/common.py``.  Parameters are plain
+dicts of tensors in the JAX layouts (``w [d_in, d_out]``, ``emb [vocab,
+d]``, ``scale [d]``), made by the ``init_*`` helpers from an explicit
+``torch.Generator`` on the target device (the numbers differ from
+``jax.random``'s; the tests draw weights with numpy and hand the same
+arrays to both packages).  Compute runs in the parameters' dtype with f32
+where the JAX package uses it: norm statistics, RoPE phases, attention
+scores and softmax, the GLU gate, the loss's logits.
 
-Not ported here: ``chunked_softmax_xent`` (training, a later slice);
-``shard_hint`` and ``maybe_remat`` (no counterpart on one card).
+``maybe_remat`` is the reference's activation-checkpoint policy on
+``torch.utils.checkpoint``; ``shard_hint`` is the identity (one card, no
+mesh).  The sharding axes ``AX_DATA`` / ``AX_MODEL`` wait for the mesh
+tooling.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
+
+from repro_torch.tree import tree_leaves
 
 Params = Dict[str, Any]
 
 
+def shard_hint(x: torch.Tensor, *entries) -> torch.Tensor:
+    """The reference's sharding constraint against the ambient mesh: one
+    card has no mesh, so ``x`` as it is."""
+    return x
+
+
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}[name]
+
+
+# matmul outputs without batch dims: the weight products (``x @ w`` reaches
+# aten.mm), not attention's batched einsums (aten.bmm)
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(body: Callable, cfg) -> Callable:
+    """Wrap a layer's body per the config's activation-checkpoint policy.
+
+    ``full``: recompute everything in the backward pass (the layer's
+    inputs are all it keeps).  ``dots``: keep the outputs of the matmuls
+    with no batch dims (the reference's
+    ``dots_with_no_batch_dims_saveable``), recompute the rest.  ``none``
+    (or ``cfg.remat`` false): the body as it is.  The wrapper checkpoints
+    only while autograd records, i.e. grad is enabled and some input
+    requires grad; otherwise (serving's prefill) it calls the body, so
+    that no device operation changes."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return body
+    if cfg.remat_policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
+
+    def context():
+        return create_selective_checkpoint_contexts(_dots_policy)
+
+    def wrapped(*args):
+        recording = torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tree_leaves(args))
+        if not recording:
+            return body(*args)
+        if cfg.remat_policy == "dots":
+            return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False,
+                              context_fn=context)
+        return checkpoint(body, *args, use_reentrant=False, preserve_rng_state=False)
+
+    return wrapped
 
 
 # ------------------------------------------------------------------ norms ---
@@ -191,6 +248,43 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype)
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
     return p["emb"][tokens]
+
+
+# ------------------------------------------------------------------- loss ---
+
+
+def _chunk_nll(h: torch.Tensor, w_out: torch.Tensor, y: torch.Tensor,
+               m: torch.Tensor):
+    """(sum of masked NLL, sum of the mask) over one chunk; logits in f32."""
+    logits = (h @ w_out).float()  # [B, chunk, V]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+    return ((lse - gold) * m).sum(), m.sum()
+
+
+def chunked_softmax_xent(
+    hidden: torch.Tensor,  # [B, L, D]
+    w_out: torch.Tensor,  # [D, V]
+    labels: torch.Tensor,  # [B, L] int
+    mask: Optional[torch.Tensor] = None,  # [B, L]
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Mean cross-entropy computed over sequence chunks so the full
+    [B, L, V] logits tensor is never materialized.  The reference's
+    ``lax.scan`` over the whole chunks is a loop here, the tail past the
+    last whole chunk one more step, and the mean ``tot / max(cnt, 1)``."""
+    B, L, D = hidden.shape
+    chunk = min(chunk, L)
+    n = L // chunk
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for a in [c * chunk for c in range(n)] + ([n * chunk] if L - n * chunk else []):
+        b = min(a + chunk, L)
+        m = (mask[:, a:b] if mask is not None
+             else torch.ones((B, b - a), dtype=torch.float32, device=hidden.device))
+        nll, k = _chunk_nll(hidden[:, a:b], w_out, labels[:, a:b], m)
+        tot, cnt = tot + nll, cnt + k
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 # ------------------------------------------------------------- activations --

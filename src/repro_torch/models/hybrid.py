@@ -9,15 +9,17 @@ parameter-sharing trick), but each site keeps its own KV cache
 leaf; where JAX scans the groups, the port loops over them, the shared
 block at the head of each group.
 
-Prefill runs each Mamba block's SSD scan through the SSD-scan kernel and
-each site's attention through ``flash_attention``; decode runs each
-site's attention through the decode-attention kernel and the Mamba
-blocks by their recurrent update.  The decode cache is written in place
+Prefill and the training loss (:func:`hybrid_loss`) run each Mamba
+block's SSD scan through the SSD-scan kernel and each site's attention
+through ``flash_attention``; decode runs each site's attention through the
+decode-attention kernel and the Mamba blocks by their recurrent update.
+The loss runs each group (the shared block, then its Mamba blocks) under
+``maybe_remat``, as the reference's scan body, the shared weights taking
+every site's gradient.  The decode cache is written in place
 (the Mamba states too), so every block owns its tensors: none is a
 broadcast view of another.
 
-Left for later slices: ``hybrid_loss`` (training) and the sharding specs
-(nothing to shard on one card).
+Left for a later slice: the sharding specs (nothing to shard on one card).
 """
 
 from __future__ import annotations
@@ -26,7 +28,15 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.models.common import dtype_of, embed, init_embedding, init_rmsnorm, rmsnorm
+from repro_torch.models.common import (
+    chunked_softmax_xent,
+    dtype_of,
+    embed,
+    init_embedding,
+    init_rmsnorm,
+    maybe_remat,
+    rmsnorm,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba2 import (
     init_mamba_block,
@@ -36,6 +46,7 @@ from repro_torch.models.mamba2 import (
 )
 from repro_torch.models.transformer import (
     _layer,
+    _layers,
     _stack,
     dense_block_apply,
     dense_block_decode,
@@ -68,6 +79,26 @@ def init_hybrid_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def _mamba(params: Params, g: int, i: int) -> Params:
     return _layer(_layer(params["mamba_blocks"], g), i)
+
+
+def hybrid_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy through the tied head."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, L = tokens.shape
+    x = embed(params["embed"], tokens)
+    positions = torch.arange(L, device=tokens.device).expand(B, L)
+
+    def group(shared, p_group, h):
+        h = dense_block_apply(cfg, shared, h, positions)  # shared weights
+        for pb in _layers(p_group):
+            h = mamba_block_apply(cfg, pb, h)
+        return h
+
+    body = maybe_remat(group, cfg)
+    for p_group in _layers(params["mamba_blocks"]):
+        x = body(params["shared_attn"], p_group, x)
+    h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return chunked_softmax_xent(h, params["embed"]["emb"].T, labels, chunk=cfg.logits_chunk)
 
 
 def hybrid_prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:

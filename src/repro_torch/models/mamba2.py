@@ -9,18 +9,21 @@ per head h with state size N and head dim P:
 ``ssd_naive`` is the step-by-step oracle; ``ssd_chunked`` is the plain
 O(L * Q) blocked algorithm (intra-chunk quadratic term + inter-chunk state
 recurrence), the chunk loop a Python loop where JAX scans.  The model's
-prefill (:func:`mamba_block_apply`) calls ``kernels.ssd_scan.ops.ssd_scan``,
-which sends a CUDA tensor to the hand-written kernel and a CPU tensor to
-``ssd_chunked``: the same function.  (The JAX model calls ``ssd_chunked``
-directly although its ops docstring says the models call through the
-switch; the port does what that docstring says.)
+prefill and training forward (:func:`mamba_block_apply`) call
+``kernels.ssd_scan.ops.ssd_scan``, which sends a CUDA tensor to the
+hand-written kernel (under autograd, with the plain version's gradient)
+and a CPU tensor to ``ssd_chunked``: the same function.  (The JAX model
+calls ``ssd_chunked`` directly although its ops docstring says the models
+call through the switch; the port does what that docstring says.)
 
 Decode is the O(1)-per-token recurrent update on a carried (conv window,
 SSM state) cache; it launches no kernel.  Layers stay stacked along a
-leading ``n_layers`` axis, as in JAX, and the port loops over them.
+leading ``n_layers`` axis, as in JAX, and the port loops over them;
+:func:`ssm_loss` runs each block under ``maybe_remat``, as the reference's
+scan body.
 
-Left for later slices: ``ssm_loss`` (it needs ``chunked_softmax_xent``)
-and the ``ssm_*_specs`` sharding trees (nothing to shard on one card).
+Left for a later slice: the ``ssm_*_specs`` sharding trees (nothing to
+shard on one card).
 """
 
 from __future__ import annotations
@@ -32,16 +35,18 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.common import (
+    chunked_softmax_xent,
     dtype_of,
     embed,
     init_embedding,
     init_linear,
     init_rmsnorm,
     linear,
+    maybe_remat,
     rmsnorm,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _layer, _stack
+from repro_torch.models.transformer import _layer, _layers, _stack
 
 Params = Dict[str, Any]
 
@@ -239,6 +244,18 @@ def init_ssm_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "blocks": _stack([init_mamba_block(gen, cfg, dtype) for _ in range(cfg.n_layers)]),
         "final_norm": init_rmsnorm(cfg.d_model, gen.device),
     }
+
+
+def ssm_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy through the tied head."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    h = embed(params["embed"], tokens)
+    body = maybe_remat(lambda p, x: mamba_block_apply(cfg, p, x), cfg)
+    for p in _layers(params["blocks"]):
+        h = body(p, h)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    # mamba2-1.3b ties embeddings (GPT-NeoX tokenizer family)
+    return chunked_softmax_xent(h, params["embed"]["emb"].T, labels, chunk=cfg.logits_chunk)
 
 
 def ssm_prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,26 +1,28 @@
-"""Mixture-of-Experts transformer (llama4-maverick, qwen3-moe families): prefill and decode.
+"""Mixture-of-Experts transformer (llama4-maverick, qwen3-moe families): prefill, decode, loss.
 
-Port of the JAX package's ``models/moe.py`` for serving.  Routing is the
-reference's GShard/Switch-style dense dispatch with groups: tokens are
+Port of the JAX package's ``models/moe.py``.  Routing is the reference's
+GShard/Switch-style dense dispatch with groups: tokens are
 split into groups of ``moe_group_size``, and each group dispatches into
 per-expert capacity buffers through one-hot products: iterative top-k by
 ``argmax`` (the first index on ties), capacity priority by (k, token),
 gates renormalised over the chosen experts, tokens past an expert's
 capacity dropped.  The products are plain ``torch.einsum`` calls, as the
-JAX package leaves them to XLA; its ``shard_hint`` calls have no
-counterpart on one card.
+JAX package leaves them to XLA; its ``shard_hint`` calls are the identity
+on one card and are left out.
 
 llama4-maverick interleaves dense and MoE blocks (``moe_every = 2``);
 qwen3-moe is MoE in every block.  The MoE blocks stay stacked
 ``[groups, ...]`` and the dense ones ``[groups, per_group, ...]``, as in
 JAX, so a JAX tree converts leaf for leaf; where JAX scans the groups,
 the port loops over them, the dense blocks of a group ahead of its MoE
-block.  Decode runs every block's attention through the decode-attention
-kernel, one ``valid_len`` a step for all blocks.  As in the reference,
-the decode step's dense dispatch reads every expert's weights, whichever
-experts the batch's tokens chose.
+block, each group under ``maybe_remat`` as the reference's scan body.
+The loss (:func:`moe_loss`) adds ``router_aux_weight`` times the groups'
+mean load-balance loss to the cross-entropy.  Decode runs every block's
+attention through the decode-attention kernel, one ``valid_len`` a step
+for all blocks.  As in the reference, the decode step's dense dispatch
+reads every expert's weights, whichever experts the batch's tokens chose.
 
-Left for later slices: ``moe_loss`` (training) and the sharding specs.
+Left for a later slice: the sharding specs.
 """
 
 from __future__ import annotations
@@ -31,17 +33,20 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (
+    chunked_softmax_xent,
     dtype_of,
     embed,
     glu_activation,
     init_embedding,
     init_linear,
     init_rmsnorm,
+    maybe_remat,
     rmsnorm,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
     _layer,
+    _layers,
     _lm_head_w,
     _stack,
     attn_apply_decode,
@@ -86,6 +91,23 @@ def _capacity(cfg: ModelConfig, group_tokens: int) -> int:
     return max(4, -(-c // 4) * 4)
 
 
+def moe_topk(cfg: ModelConfig, gates: torch.Tensor):
+    """Iterative top-k over ``gates [G,S,E]`` with per-k expert one-hots:
+    ``(gates, one-hots, indices)`` of the K choices, each a list, first
+    choice first."""
+    E, K = cfg.n_experts, cfg.experts_per_token
+    g = gates
+    sel_gate, sel_onehot, sel_idx = [], [], []
+    for k in range(K):
+        idx = torch.argmax(g, dim=-1)  # [G,S], the first maximum
+        oh = F.one_hot(idx, E).float()  # [G,S,E]
+        sel_gate.append((g * oh).sum(-1))
+        sel_onehot.append(oh)
+        sel_idx.append(idx)
+        g = g * (1.0 - oh)
+    return sel_gate, sel_onehot, sel_idx
+
+
 def moe_dispatch(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor):
     """x: [G, S, D] -> (dispatch [G,S,E,C], combine [G,S,E,C], aux_loss)."""
     G, S, D = x.shape
@@ -93,16 +115,7 @@ def moe_dispatch(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor):
     C = _capacity(cfg, S)
     logits = x.float() @ router_w  # [G,S,E]
     gates = torch.softmax(logits, dim=-1)
-
-    # iterative top-k with per-k expert one-hots
-    g = gates
-    sel_gate, sel_onehot = [], []
-    for _ in range(K):
-        idx = torch.argmax(g, dim=-1)  # [G,S], the first maximum
-        oh = F.one_hot(idx, E).float()  # [G,S,E]
-        sel_gate.append((g * oh).sum(-1))
-        sel_onehot.append(oh)
-        g = g * (1.0 - oh)
+    sel_gate, sel_onehot, _ = moe_topk(cfg, gates)
 
     # capacity positions: priority by (k, token), earlier k first; dispatch and
     # combine summed in place (the terms are [G,S,E,C], 5.4 GB for qwen3-moe's
@@ -210,13 +223,30 @@ def forward_hidden_moe(cfg: ModelConfig, params: Params, x: torch.Tensor,
                        positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embedding-space input [B, L, D] -> (final hidden states, mean aux loss)."""
     ng, nd = _n_groups(cfg), cfg.moe_every - 1
+
+    def group(p_moe, p_dense, h):
+        for pd in _layers(p_dense) if nd else ():
+            h = dense_block_apply(cfg, pd, h, positions)
+        return moe_block_apply(cfg, p_moe, h, positions)
+
+    body = maybe_remat(group, cfg)
+    dense = _layers(params["dense_blocks"]) if nd else [{}] * ng
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(ng):
-        for i in range(nd):
-            x = dense_block_apply(cfg, _layer(_layer(params["dense_blocks"], g), i), x, positions)
-        x, a = moe_block_apply(cfg, _layer(params["moe_blocks"], g), x, positions)
+    for p_moe, p_dense in zip(_layers(params["moe_blocks"]), dense):
+        x, a = body(p_moe, p_dense, x)
         aux = aux + a
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux / ng
+
+
+def moe_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Cross-entropy plus ``router_aux_weight`` times the load-balance loss."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, L = tokens.shape
+    x = embed(params["embed"], tokens)
+    positions = torch.arange(L, device=tokens.device).expand(B, L)
+    h, aux = forward_hidden_moe(cfg, params, x, positions)
+    ce = chunked_softmax_xent(h, _lm_head_w(cfg, params), labels, chunk=cfg.logits_chunk)
+    return ce + cfg.router_aux_weight * aux
 
 
 def moe_prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,18 @@
-"""Dense decoder-only transformer (llama / qwen / gemma / mistral families): prefill and decode.
+"""Dense decoder-only transformer (llama / qwen / gemma / mistral families).
 
-Port of the JAX package's ``models/transformer.py`` for serving: the
-forward over a whole prompt (``flash_attention``) and one decode step
-(the decode-attention kernel).  Layers stay *stacked* along a leading
-``n_layers`` axis, as in JAX, so a JAX parameter tree converts leaf for
-leaf (``convert.params_from_numpy``); where JAX scans the stack, the
-port loops over its layers.  The hybrid family reuses the dense block
-(``dense_block_apply``, ``dense_block_decode``) as its shared attention
-block.
+Port of the JAX package's ``models/transformer.py``: the forward over a
+whole sequence (``flash_attention``), the training loss
+(:func:`dense_loss`) and one decode step (the decode-attention kernel).
+Layers stay *stacked* along a leading ``n_layers`` axis, as in JAX, so a
+JAX parameter tree converts leaf for leaf (``convert.params_from_numpy``);
+where JAX scans the stack, the port loops over its layers (each stacked
+leaf unbound once, :func:`_layers`), the layer's body under
+``maybe_remat`` as the reference's scan body is.  The hybrid family
+reuses the dense block (``dense_block_apply``, ``dense_block_decode``) as
+its shared attention block.
 
-Left for later slices: ``dense_loss`` (training), and the ``*_specs``
-sharding trees (nothing to shard on one card); ``maybe_remat`` has no
-meaning without a backward pass.
+Left for a later slice: the ``*_specs`` sharding trees (nothing to shard
+on one card).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from repro_torch.kernels.decode_attn.ops import gqa_decode_attention
 from repro_torch.models.common import (
     apply_rope,
+    chunked_softmax_xent,
     dtype_of,
     embed,
     flash_attention,
@@ -31,6 +33,7 @@ from repro_torch.models.common import (
     init_linear,
     init_rmsnorm,
     linear,
+    maybe_remat,
     rmsnorm,
 )
 from repro_torch.models.config import ModelConfig
@@ -187,6 +190,20 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _layers(tree):
+    """Every layer of a stacked param tree, in order (views, no copy).
+
+    Each stacked leaf is unbound once, so that a backward stacks its
+    layers' gradients once (``unbind``'s backward); indexing the leaf layer
+    by layer (:func:`_layer`) would make each layer's backward allocate a
+    gradient of the whole stacked leaf."""
+    if isinstance(tree, dict):
+        per = {k: _layers(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return torch.unbind(tree)
+
+
 def init_dense_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Weights drawn from ``gen`` on its device, with the JAX package's
     scales; blocks stacked ``[n_layers, ...]``."""
@@ -210,9 +227,21 @@ def _lm_head_w(cfg: ModelConfig, params: Params) -> torch.Tensor:
 def forward_hidden_dense(cfg: ModelConfig, params: Params, x: torch.Tensor,
                          positions: torch.Tensor) -> torch.Tensor:
     """Embedding-space input [B, L, D] -> final hidden states, layer by layer."""
-    for i in range(cfg.n_layers):
-        x = dense_block_apply(cfg, _layer(params["blocks"], i), x, positions)
+    body = maybe_remat(lambda p, h: dense_block_apply(cfg, p, h, positions), cfg)
+    for p in _layers(params["blocks"]):
+        x = body(p, x)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def dense_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` ([B, L] each)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    B, L = tokens.shape
+    x = embed(params["embed"], tokens)
+    positions = torch.arange(L, device=tokens.device).expand(B, L)
+    h = forward_hidden_dense(cfg, params, x, positions)
+    return chunked_softmax_xent(h, _lm_head_w(cfg, params), labels, chunk=cfg.logits_chunk)
 
 
 def dense_prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Whisper-style encoder-decoder backbone: prefill and decode. [arXiv:2212.04356]
+"""Whisper-style encoder-decoder backbone: prefill, decode and the loss. [arXiv:2212.04356]
 
-Port of the JAX package's ``models/whisper.py`` for serving.  The audio
+Port of the JAX package's ``models/whisper.py``.  The audio
 conv frontend is a stub there too: the caller gives precomputed frame
 embeddings ``[B, T_frames, d_model]``.  The encoder runs bidirectional
 self-attention over the frames; the decoder causal self-attention, then
@@ -8,7 +8,8 @@ cross-attention to the encoder output; plain (non-gated) GELU MLPs.  RoPE
 is applied in the encoder and in the decoder's self-attention, not in
 cross-attention, as in the reference.  The blocks stay stacked
 (``enc_blocks``, ``dec_blocks``: ``[n_layers, ...]``), as in JAX, so a JAX
-tree converts leaf for leaf; where JAX scans the stack, the port loops.
+tree converts leaf for leaf; where JAX scans the stack, the port loops,
+each layer under ``maybe_remat`` as the reference's scan body.
 
 Prefill runs every attention through ``flash_attention``.  Decode runs
 both attentions of each decoder layer through the decode-attention kernel:
@@ -18,8 +19,7 @@ the cross K/V that :func:`encdec_prefill_cross` writes once (into the
 cache, in place) and decode only reads.  A step builds the kernel's two
 ``valid_len`` tensors once (``pos + 1`` and ``encoder_seq``) for all layers.
 
-Left for later slices: ``encdec_loss`` (training) and the sharding specs
-(nothing to shard on one card).
+Left for a later slice: the sharding specs (nothing to shard on one card).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.decode_attn.ops import gqa_decode_attention
 from repro_torch.models.common import (
     apply_rope,
+    chunked_softmax_xent,
     dtype_of,
     embed,
     flash_attention,
@@ -39,10 +40,11 @@ from repro_torch.models.common import (
     init_linear,
     init_rmsnorm,
     linear,
+    maybe_remat,
     rmsnorm,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _layer, _stack, attn_apply_decode, init_attn
+from repro_torch.models.transformer import _layer, _layers, _stack, attn_apply_decode, init_attn
 
 Params = Dict[str, Any]
 
@@ -116,26 +118,43 @@ def init_encdec_model(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
     """frames: [B, T_enc, D] (stub frontend output) -> encoder states."""
-    h = frames
-    for i in range(cfg.n_encoder_layers):
-        p = _layer(params["enc_blocks"], i)
+
+    def layer(p, h):
         hn = rmsnorm(p["attn_norm"], h, cfg.norm_eps)
         h = h + _mha(cfg, p["attn"], hn, hn, causal=False, rope=True)
-        h = h + gelu_mlp(p["mlp"], rmsnorm(p["mlp_norm"], h, cfg.norm_eps))
+        return h + gelu_mlp(p["mlp"], rmsnorm(p["mlp_norm"], h, cfg.norm_eps))
+
+    body = maybe_remat(layer, cfg)
+    h = frames
+    for p in _layers(params["enc_blocks"]):
+        h = body(p, h)
     return rmsnorm(params["enc_norm"], h, cfg.norm_eps)
 
 
 def decoder_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    enc: torch.Tensor) -> torch.Tensor:
-    h = embed(params["embed"], tokens)
-    for i in range(cfg.n_layers):
-        p = _layer(params["dec_blocks"], i)
+
+    def layer(p, enc, h):
         hn = rmsnorm(p["self_norm"], h, cfg.norm_eps)
         h = h + _mha(cfg, p["self_attn"], hn, hn, causal=True, rope=True)
         h = h + _mha(cfg, p["cross_attn"], rmsnorm(p["cross_norm"], h, cfg.norm_eps), enc,
                      causal=False, rope=False)
-        h = h + gelu_mlp(p["mlp"], rmsnorm(p["mlp_norm"], h, cfg.norm_eps))
+        return h + gelu_mlp(p["mlp"], rmsnorm(p["mlp_norm"], h, cfg.norm_eps))
+
+    body = maybe_remat(layer, cfg)
+    h = embed(params["embed"], tokens)
+    for p in _layers(params["dec_blocks"]):
+        h = body(p, enc, h)
     return rmsnorm(params["final_norm"], h, cfg.norm_eps)
+
+
+def encdec_loss(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy of the decoder over ``batch["tokens"]``
+    after the encoder over ``batch["frames"]``, through the tied head."""
+    enc = encode(cfg, params, batch["frames"])
+    h = decoder_hidden(cfg, params, batch["tokens"], enc)
+    return chunked_softmax_xent(h, params["embed"]["emb"].T, batch["labels"],
+                                chunk=cfg.logits_chunk)
 
 
 def encdec_prefill(cfg: ModelConfig, params: Params, frames: torch.Tensor,

@@ -24,7 +24,8 @@ runs on a machine that has only torch:
   llava-next-34b's and qwen3-moe's (Dh = 128, 5, 7 and 16 query heads per
   KV head, with CUDA-graph replays, and the 16 heads kept apart), and
   whisper-base's cross-attention (1500 valid positions); serving goes
-  through the kernel;
+  through the kernel, and so does an int8 KV cache (``kv_cache_quant``),
+  decoding as on the CPU, with a planted wrong dequantisation scale read;
 * the SSD-scan kernel (``csrc/ssd_scan.cu``) against the oracle
   ``ssd_naive`` (f32, ``tests/test_kernels.py``'s rel < 1e-5) and the
   plain ``ssd_chunked`` (bf16 output: 2e-2 * max|ref|) at the
@@ -32,7 +33,9 @@ runs on a machine that has only torch:
   with one buffer a copy ring, unaligned inputs and the prefill's shape (f32 1e-4), the model's dtypes (x, B, C bf16;
   log_a, dt f32), bit-identical repeats and CUDA-graph replay (the C Bᵀ
   workspace allocated under capture), the wrapper's rejections, and a
-  reduced mamba2 prefill through the kernel, one call per layer;
+  reduced mamba2 prefill through the kernel, one call per layer; under
+  grad, the kernel inside ``ops.SSDScan`` with the plain version's
+  gradient, and a reduced mamba2 train step equal to the CPU's;
 * a reduced zamba2 (heads of 80) prefilling and decoding on the card
   through both kernels, equal to the CPU, and raising where the decode
   kernel refuses its head shape (no fallback); a reduced whisper, llava,
@@ -432,6 +435,50 @@ def test_serve_on_the_card_goes_through_the_kernel(card):
     assert seq.shape == (2, 5) and seq.device.type == "cuda"
 
 
+def test_int8_kv_cache_decodes_on_the_card_as_on_the_cpu(card, monkeypatch):
+    """``kv_cache_quant`` on the card: a reduced llama3.2-1b (f32) decodes 8
+    steps through the decode kernel, one launch per layer and step, with
+    the int8 cache dequantised for it; every step's logits equal the same
+    weights' on the CPU (atol 2e-4, rtol 2e-3) and the caches' int8 codes
+    within one step of rounding.  A planted fault, the cache dequantised
+    with 1/29 in place of 1/32, reads far outside (its excess over the
+    limit at least 100 x atol)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.models import transformer
+    from repro_torch.models.model_api import build_model
+
+    cfg = get_config("llama3.2-1b").reduced(dtype="float32", kv_cache_quant=True)
+    model, host = build_model(cfg), build_model(cfg, device="cpu")
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    host_params = _to_cpu(params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8),
+                                                              dtype=np.int32))
+
+    def decode(m, p, dev):
+        cache, out = m.init_cache(2, 8), []
+        for i in range(8):
+            logits, cache = m.decode_step(p, toks[:, i].to(dev), cache, i)
+            out.append(logits.cpu())
+        return torch.stack(out), cache
+
+    before = decode_attn_cuda.launches
+    got, cache = decode(model, params, card)
+    assert decode_attn_cuda.launches == before + 8 * cfg.n_layers
+    want, host_cache = decode(host, host_params, "cpu")
+    assert cache["k"].dtype == torch.int8 and cache["k"].device.type == "cuda"
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-3)
+    for name in ("k", "v"):
+        assert (cache[name].cpu().int() - host_cache[name].int()).abs().max().item() <= 1
+
+    dequant = transformer._kv_dequant
+    monkeypatch.setattr(transformer, "_kv_dequant",
+                        lambda x, dtype: dequant(x, dtype) * (transformer.KV_QUANT_SCALE / 29.0))
+    fault, _ = decode(model, params, card)
+    excess = ((fault - want).abs() - 2e-3 * want.abs()).max().item()
+    assert excess >= 100 * 2e-4, excess
+
+
 SSD_SHAPES = [  # (Bt, L, H, P, N, Q): tests/test_kernels.py, the reduced model, one chunk
     (2, 64, 4, 8, 16, 16), (1, 128, 2, 64, 128, 32), (2, 32, 8, 16, 8, 32),
     (1, 64, 1, 128, 64, 64), (1, 64, 2, 16, 8, 16), (2, 32, 8, 32, 16, 4),
@@ -595,6 +642,75 @@ def test_mamba2_prefill_on_the_card_goes_through_the_kernel(card):
     seq = serve.decode(model, params, tokens=4, batch=2, ctx=8)
     assert ssd_scan_cuda.launches == before + model.cfg.n_layers  # decode: no kernel
     assert seq.shape == (2, 4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_ssd_scan_under_grad_on_the_card_has_the_plain_gradient(card, dtype, tol):
+    """Under grad a CUDA scan runs the kernel once inside ``ops.SSDScan``:
+    its output has the Function's ``grad_fn``, and the gradients of all five
+    inputs are autograd's through the plain ``ssd_chunked`` (max|d| <= tol
+    max|ref|); under ``no_grad`` the kernel runs bare."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    x, la, B, C, dt = _ssd_inputs(card, 2, 512, 4, 64, 128, 3)
+    x, B, C = x.to(dtype), B.to(dtype), C.to(dtype)
+    w = torch.randn(x.shape, generator=torch.Generator(device=card).manual_seed(1),
+                    device=card)
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_(True) for t in (x, la, B, C, dt)]
+        y = fn(*ts, 256)
+        return y, torch.autograd.grad((y.float() * w).sum(), ts)
+
+    before = ssd_scan_cuda.launches
+    y, got = grads(ssd_scan)
+    assert ssd_scan_cuda.launches == before + 1
+    assert type(y.grad_fn).__name__ == "SSDScanBackward"
+    _, want = grads(ssd_chunked)
+    for g, r in zip(got, want):
+        assert g.dtype == r.dtype and _rel(g, r) <= tol
+    with torch.no_grad():
+        assert ssd_scan(x, la, B, C, dt, 256).grad_fn is None
+    assert ssd_scan_cuda.launches == before + 2
+
+
+def test_mamba2_train_step_on_the_card_matches_the_cpu(card):
+    """A reduced mamba2 (f32) train step: the loss and every gradient on the
+    card equal the CPU's (atol 2e-4, rtol 2e-3), the SSD kernel called
+    twice a layer (the forward and the remat recompute)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.models.model_api import build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("mamba2-1.3b").reduced(dtype="float32")
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    batch = synth_batch(cfg, DataConfig(global_batch=2, seq_len=64, seed=5), 0)
+
+    def loss_grads(dev, p):
+        leaves = tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = build_model(cfg, dev).loss(p, {k: torch.from_numpy(v).to(dev)
+                                              for k, v in batch.items()})
+        return loss, torch.autograd.grad(loss, leaves)
+
+    before = ssd_scan_cuda.launches
+    got, g_card = loss_grads(card, _to_card(params, card))
+    assert ssd_scan_cuda.launches == before + 2 * cfg.n_layers
+    want, g_cpu = loss_grads("cpu", params)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=2e-3)
+    for a, b in zip(g_card, g_cpu):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-4, rtol=2e-3)
+
+
+def _to_card(tree, card):
+    if isinstance(tree, dict):
+        return {k: _to_card(v, card) for k, v in tree.items()}
+    return tree.detach().to(card)
 
 
 def test_zamba2_prefill_and_decode_on_the_card_go_through_both_kernels(card):

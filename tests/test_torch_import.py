@@ -117,6 +117,17 @@ def test_entry_points_raise_without_a_card_unless_told_cpu():
         params_from_numpy({"w": np.zeros((2, 2), np.float32)})
     with pytest.raises(RuntimeError, match='device="cpu"'):
         run_pointwise_variants(plans)
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        train.run("llama3.2-1b", steps=1)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Pipeline(get_config("llama3.2-1b").reduced(), DataConfig(2, 8))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ckpt.restore("nowhere", 0, {})
     # told the host, they run
     got = simulate(plans, tasks, 0.01, sched, seed=0, engine="batch", device="cpu")
     want = simulate(plans, tasks, 0.01, sched, seed=0, engine="soa")
@@ -259,6 +270,33 @@ def test_params_from_numpy_takes_every_reduced_param_tree(arch):
     assert len(have) == len(want)
     for path, leaf in want:
         assert tuple(have[path].shape) == leaf.shape, jax.tree_util.keystr(path)
+
+
+def test_training_runs_without_jax_or_repro(tmp_path):
+    """The training path, imported and run on the host in a fresh process:
+    two steps of a reduced model with a checkpoint, resumed for a third,
+    and still no jax and no JAX package in the module table."""
+    script = "\n".join([
+        "import sys",
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]",
+        "from repro_torch.launch import train",
+        f"d = {str(tmp_path)!r}",
+        "a = train.run('mamba2-1.3b', steps=2, batch=2, seq=32, ckpt_dir=d, ckpt_every=1,",
+        "              log_every=100, device='cpu')",
+        "b = train.run('mamba2-1.3b', steps=3, batch=2, seq=32, ckpt_dir=d, ckpt_every=1,",
+        "              log_every=100, device='cpu')",
+        "assert len(a['losses']) == 2 and len(b['losses']) == 1, (a['losses'], b['losses'])",
+        "bad = sorted(m for m in sys.modules",
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))",
+        "assert not bad, bad",
+        "print('OK')",
+    ])
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], env=env, cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
 
 
 def test_new_modules_run_without_jax_or_repro():

@@ -20,6 +20,8 @@ greedy tokens.  The JAX side runs with ``jax_enable_x64`` off.
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -43,6 +45,7 @@ from repro_torch.models.model_api import build_model
 
 import torch_twins as tw
 
+ROOT = Path(__file__).resolve().parents[1]
 ARCHS = {"llama4-maverick-400b-a17b": dict(n_layers=4), "qwen3-moe-235b-a22b": {}}
 B, L, STEPS = 2, 12, 8
 SMALL = dict(attn_q_chunk=8, attn_k_chunk=8, moe_group_size=8)
@@ -95,6 +98,48 @@ def test_dispatch_matches_jax_exactly(E, K, cf, G, S, D, offset):
     assert d.sum(dim=(2, 3)).max() <= K
     if offset:  # the skewed router overflows some expert's capacity
         assert d.sum() < G * S * K
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_forced_route_replays_moe_topk():
+    """``chip_smoke._forced_topk``, which the smoke run's plain replay
+    takes in place of ``moe_topk``: ``moe_topk``'s own indices give back
+    its own choice; another run's indices are taken as given, each with
+    this call's gate, and ``moe_dispatch`` built on them sends the tokens
+    there."""
+    forced_topk = _chip_smoke()._forced_topk
+    fields = dict(name="t", family="moe", n_layers=2, d_model=12, n_heads=2, n_kv_heads=2,
+                  d_ff=32, vocab_size=64, n_experts=8, experts_per_token=3, moe_d_ff=16,
+                  capacity_factor=8 / 3, moe_group_size=24)
+    cfg = ModelConfig(**fields)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 24, 12), dtype=np.float32))
+    w = torch.from_numpy(0.3 * rng.standard_normal((12, 8), dtype=np.float32))
+    gates = torch.softmax(x @ w, dim=-1)
+    own = PM.moe_topk(cfg, gates)
+    again = forced_topk(gates, own[2])
+    for a, b in zip(own, again):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+    forced = [(i + 1) % 8 for i in own[2]]  # other experts, still distinct per token
+    sel_gate, onehot, idx = forced_topk(gates, forced)
+    assert all(torch.equal(i, f) for i, f in zip(idx, forced))
+    for k in range(3):
+        torch.testing.assert_close(sel_gate[k], torch.gather(gates, -1, forced[k][..., None])[..., 0])
+    real = PM.moe_topk
+    try:
+        PM.moe_topk = lambda c, g: forced_topk(g, forced)
+        d, _, _ = PM.moe_dispatch(cfg, w, x)
+    finally:
+        PM.moe_topk = real
+    # capacity E/K: no token dropped; each token's slots are its forced experts
+    sent = d.sum(dim=3)  # [G, S, E]
+    assert torch.equal(sent, sum(torch.nn.functional.one_hot(f, 8).float() for f in forced))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
