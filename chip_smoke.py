@@ -269,6 +269,24 @@ Phases, each on lines of its own; any failure exits non-zero:
    iterations, us an iteration, evictions, re-timings, ghost pops and
    variants undone; the ratio of us an iteration faulted / fault-free;
    device ops an iteration faulted and fault-free (``torch.profiler``);
+   (x) the serving control plane and the dry run on the H100's constants
+   (``repro_torch.launch.analytics``): (x.1) right after phase (ii), one
+   16-token chunk of the loaded llama3.2-1b at the end of its
+   2048-position cache (the decode kernel 16 x 16 times), wall, device
+   time and busy share beside ``serve_runtime.decode_chunk_latency``'s
+   one-card prediction, whose memory term must not exceed the measured
+   device time; after phase (vi), the same for (m) llama4-maverick from
+   phase (viii)'s decode numbers, with the bytes its loaded weights and
+   cache hold beside what ``active_params`` counts; (x.2)
+   ``benchmarks/bench_lm_serving.py``'s four-model mix, its rates
+   recomputed through the port's ``build_serving_plan`` on the H100
+   partitions, under every scheduler for 2.0 s (the ms a chunk by
+   partition; miss %, accuracy loss %, utilisation; each model's
+   released = completed + dropped + in flight held, "terastal <= the
+   baselines" read); (x.3) ``launch.dryrun.run_cell`` on ``meta`` for
+   (h)'s prefill and (o)'s training step, each count held to
+   ``dryrun.dense_count`` within 1e-12, and its share of the bf16 peak
+   over (h)'s and (o)'s measured times;
    after each phase, the seconds it took and the seconds since the start;
 5. the ``{"kernels": [...]}`` line, then the card line, then
    ``{"ok": true, "device": {...}}`` as the last line.
@@ -477,6 +495,25 @@ FAULT_PROFILE = dict(spec=FAULT_SPECS[0], seeds=4, duration=0.05)
 # last logits, token-by-token decode vs prefill of a 512-token prompt, f32:
 # tests/test_model_consistency.py's assert_allclose(atol, rtol)
 CROSS_TOL = dict(atol=2e-4, rtol=2e-3)
+# (x) the serving control plane and the dry run, on the H100's constants
+# (repro_torch.launch.analytics).  (x.1): cell (c)'s llama3.2-1b as
+# benchmarks/bench_lm_serving.py's mix serves it (B=8, a 2048-position cache,
+# 16-token chunks): one chunk at the end of the cache, timed, beside the
+# one-card prediction of serve_runtime.decode_chunk_latency; its memory term
+# must not exceed the measured device time (a roofline is a floor)
+FLOOR = dict(chunk=16, ctx=SERVE["ctx"], batch=SERVE["batch"])
+# (x.2) bench_lm_serving.py's four-model mix (arch, ctx, batch, redundancy) and
+# its _calibrated_rates shares, recomputed on the port's H100 partitions; every
+# scheduler for 2.0 s, seed 0
+LM_MIX = (("llama3.2-1b", 2048, 8, 0.5), ("gemma-7b", 4096, 8, 0.7),
+          ("mistral-nemo-12b", 8192, 8, 0.7), ("qwen3-moe-235b-a22b", 4096, 4, 0.85))
+LM_SHARES = (0.9, 0.7, 0.55, 0.45)
+LM_DURATION = 2.0
+# (x.3) the dry run's count of (h)'s prefill and (o)'s train step on meta against
+# repro_torch.launch.dryrun.dense_count: tests/test_torch_dryrun.py's 1e-12
+DRYRUN_CELLS = (("h", "prefill", DENSE["prompt"], DENSE["batch"]),
+                ("o", "train", TRAIN_CELLS[0]["seq"], TRAIN_CELLS[0]["batch"]))
+FLOP_RTOL = 1e-12
 
 
 def fail(msg):
@@ -1893,6 +1930,7 @@ def moe_cell(torch, report, cell):
         0, cfg.vocab_size, (B, L), dtype=np.int64)).cuda()
     ctx = L + cell["tokens"]
     cache = model.init_cache(B, ctx)
+    tree_bytes = dict(params=_tree_bytes(params), cache=_tree_bytes(cache), ctx=ctx)
     logits, pre = _prefill_cell(torch, tag, model, params, {"tokens": toks}, None, L, load_s,
                                 cache)
     first = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -1913,7 +1951,7 @@ def moe_cell(torch, report, cell):
                                 **cell["twin"])
     if c_launch != cfg.n_layers * cell["check_prompt"]:
         fail(f"the {cfg.name} decode check launched the decode kernel {c_launch} times")
-    report[f"moe_{cell['label']}"] = dict(prefill=pre, decode=dec, f32=f32)
+    report[f"moe_{cell['label']}"] = dict(prefill=pre, decode=dec, f32=f32, tree_bytes=tree_bytes)
 
 
 def new_families(torch, report):
@@ -2359,6 +2397,202 @@ def train_path(torch, report):
     _train_twins(torch, report)
     _train_resume(torch, report)
     phase_done("phase (ix) checks")
+
+
+def _tree_bytes(tree):
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _chunk_prediction(cfg, chunk, ctx, batch):
+    """serve_runtime's one-card prediction of a decode chunk, and its
+    memory term (weights and a full cache read a step), in ms."""
+    from repro_torch.launch.analytics import HBM_BW, active_params, cache_bytes
+    from repro_torch.models.model_api import ShapeSpec
+    from repro_torch.runtime.serve_runtime import MeshPartition, decode_chunk_latency
+
+    pred = decode_chunk_latency(cfg, MeshPartition("h100", 1, 0.0), chunk, ctx, batch)
+    step_bytes = active_params(cfg) * 2 + cache_bytes(cfg, ShapeSpec("x", ctx, batch, "decode"))
+    return pred * 1e3, chunk * step_bytes / HBM_BW * 1e3, step_bytes
+
+
+def decode_floor_c(torch, report, model, params):
+    """Phase (x.1) (c): one 16-token chunk of cell (c)'s loaded llama3.2-1b
+    at the end of its 2048-position cache, the decode kernel's counts set
+    to 0 just before and read just after: wall, device time (a profiled
+    rerun) and busy share beside the one-card prediction; the prediction's
+    memory term held under the measured device time."""
+    from repro_torch.launch import serve
+
+    cfg = model.cfg
+    n, ctx, B = FLOOR["chunk"], FLOOR["ctx"], FLOOR["batch"]
+    start = ctx - n
+    cache = model.init_cache(B, ctx)
+    first = torch.zeros((B,), dtype=torch.int32, device="cuda")
+
+    def chunk():
+        return serve.decode(model, params, tokens=n, batch=B, ctx=ctx, cache=cache,
+                            start=start, first=first)
+
+    chunk()  # warm: the kernel's grid at these bounds
+    _zero_counts(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = chunk()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    c = _counts()
+    say(f"[floor] counts read after the (c) chunk: {c}")
+    if c != dict(s2d_conv=0, decode_attn=cfg.n_layers * n, ssd_scan=0):
+        fail(f"the (c) decode chunk launched {c}, not decode_attn x {cfg.n_layers} x {n} alone")
+    if tuple(seq.shape) != (B, n) or not bool(((seq >= 0) & (seq < cfg.vocab_size)).all()):
+        fail(f"the (c) decode chunk returned {tuple(seq.shape)} ids, or ids outside the vocabulary")
+    dev = device_activity(torch, chunk)
+    dev_ms = sum(ms for _, ms in dev.values())
+    pred_ms, mem_ms, step_bytes = _chunk_prediction(cfg, n, ctx, B)
+    line = dict(arch=cfg.name, chunk=n, ctx=ctx, batch=B, start=start, launches=c,
+                wall_ms=wall_ms, device_ms=dev_ms if dev else None,
+                busy_share=dev_ms / wall_ms if dev else None, predicted_ms=pred_ms,
+                predicted_memory_ms=mem_ms, predicted_step_bytes=step_bytes,
+                device_over_predicted=dev_ms / pred_ms if dev else None,
+                wall_over_predicted=wall_ms / pred_ms)
+    report.setdefault("decode_floor", {})["c"] = line
+    say("[floor] (c) {arch} bf16 B={batch}, a {chunk}-token chunk from position {start} of a "
+        "{ctx}-position cache: wall {wall_ms:.3f} ms, device {device_ms} ms, busy {busy_share}; "
+        "one-card prediction {predicted_ms:.4f} ms (memory term {predicted_memory_ms:.4f} ms, "
+        "{predicted_step_bytes:.4e} bytes a step); device / predicted {device_over_predicted}, "
+        "wall / predicted {wall_over_predicted:.3f}".format(**line))
+    if not dev:
+        fail("the (c) decode chunk: torch.profiler recorded no device activity")
+    if mem_ms > dev_ms:
+        fail(f"the (c) prediction's memory term {mem_ms:.4f} ms exceeds the measured device "
+             f"time {dev_ms:.4f} ms: a wrong constant or count")
+
+
+def decode_floor_m(torch, report):
+    """Phase (x.1) (m): llama4-maverick at its cut depth, from phase (viii)'s
+    own decode numbers: the prediction beside the measured device time a
+    step, and the bytes the loaded trees hold beside what active_params
+    counts (the dense dispatch reads every expert)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.analytics import HBM_BW
+
+    (cell,) = [c for c in MOE_CELLS if c["label"] == "m"]
+    got = report["moe_m"]
+    cfg = dataclasses.replace(get_config(cell["arch"]), **cell["cut"])
+    dec, tb, n = got["decode"], got["tree_bytes"], FLOOR["chunk"]
+    dev_ms = dec["device_ms_per_step"] * n
+    wall_ms = dec["ms_per_token"] * n
+    pred_ms, mem_ms, step_bytes = _chunk_prediction(cfg, n, tb["ctx"], dec["batch"])
+    line = dict(arch=cfg.name, n_layers=cfg.n_layers, chunk=n, ctx=tb["ctx"], batch=dec["batch"],
+                device_ms=dev_ms, wall_ms=wall_ms, predicted_ms=pred_ms,
+                predicted_memory_ms=mem_ms, active_step_bytes=step_bytes,
+                tree_step_bytes=tb["params"] + tb["cache"],
+                hbm_bytes_in_device_time=dec["device_ms_per_step"] / 1e3 * HBM_BW,
+                device_over_predicted=dev_ms / pred_ms, wall_over_predicted=wall_ms / pred_ms)
+    line["tree_over_active"] = line["tree_step_bytes"] / step_bytes
+    report.setdefault("decode_floor", {})["m"] = line
+    say("[floor] (m) {arch} at {n_layers} layers, B={batch}, cache {ctx}, 16 of phase (viii)'s "
+        "steps: device {device_ms:.3f} ms, wall {wall_ms:.3f} ms; one-card prediction "
+        "{predicted_ms:.4f} ms (memory term {predicted_memory_ms:.4f}); device / predicted "
+        "{device_over_predicted:.3f}, wall / predicted {wall_over_predicted:.3f}".format(**line))
+    say("[floor] (m) bytes a step: active_params counts {active_step_bytes:.4e} (the top-1 "
+        "expert); the loaded weights and cache hold {tree_step_bytes:.4e} = "
+        "{tree_over_active:.2f}x (the dense dispatch reads all 128 experts); the HBM rate "
+        "moves {hbm_bytes_in_device_time:.4e} in the step's device time".format(**line))
+    if mem_ms > dev_ms:
+        fail(f"the (m) prediction's memory term {mem_ms:.4f} ms exceeds the measured device "
+             f"time {dev_ms:.4f} ms: a wrong constant or count")
+
+
+def serving_plane(torch, report):
+    """Phase (x.2): bench_lm_serving's mix through the port's serving
+    control plane on its H100 partitions: the heterogeneity table, then
+    every scheduler's miss, accuracy loss and utilisation, with each
+    model's request bookkeeping held."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import ALL_SCHEDULERS
+    from repro_torch.runtime.serve_runtime import (
+        ServingModel, build_serving_plan, default_partitions, serve_workload,
+    )
+
+    parts = default_partitions()
+    models = [ServingModel(get_config(a), tokens_out=64, chunk=16, ctx_len=ctx, batch=b,
+                           redundancy=r) for a, ctx, b, r in LM_MIX]
+    rates, table = [], {}
+    for sm, share in zip(models, LM_SHARES):  # bench_lm_serving._calibrated_rates
+        probe = build_serving_plan(sm, parts, deadline=10.0, enable_variants=False)
+        min_sum = float(probe.min_lat.sum())
+        rates.append(round(min(share / min_sum, 1.0 / (min_sum * 1.3)), 1))
+        table[sm.cfg.name] = [float(x) * 1e3 for x in probe.lat[0]]
+    say(f"[plane] H100 partitions {[(p.name, p.n_chips, p.collective_overhead_s) for p in parts]}; "
+        f"calibrated rates (req/s) {rates}")
+    for name, ms in table.items():
+        say(f"[plane]   ms a chunk on {[p.name for p in parts]}: {name} "
+            f"{[round(x, 4) for x in ms]}")
+    rows = []
+    for sched in ALL_SCHEDULERS:
+        t0 = time.perf_counter()
+        res = serve_workload(models, rates, scheduler=sched, duration=LM_DURATION, seed=0)
+        wall = time.perf_counter() - t0
+        for m, s in res.per_model.items():
+            if s.released != s.completed + s.dropped + s.in_flight:
+                fail(f"[plane] {sched} model {m}: released {s.released} != completed "
+                     f"{s.completed} + dropped {s.dropped} + in flight {s.in_flight}")
+            if not 0.0 <= s.miss_rate <= 1.0:
+                fail(f"[plane] {sched} model {m}: miss rate {s.miss_rate}")
+        losses = [s.mean_norm_accuracy_loss for s in res.per_model.values() if s.completed]
+        rows.append(dict(scheduler=sched, miss_rate_pct=100 * res.mean_miss_rate,
+                         acc_loss_pct=100 * float(np.mean(losses)) if losses else 0.0,
+                         util=float(np.mean(res.utilization())), wall_s=wall,
+                         released=[s.released for s in res.per_model.values()]))
+        say("[plane] {scheduler}: miss {miss_rate_pct:.2f}%, accuracy loss {acc_loss_pct:.3f}%, "
+            "utilisation {util:.4f}, released {released} ({wall_s:.2f} s on the host)"
+            .format(**rows[-1]))
+    by = {r["scheduler"]: r["miss_rate_pct"] for r in rows}
+    holds = by["terastal"] <= min(by["fcfs"], by["edf"], by["dream"]) + 1e-9
+    say(f"[plane] read, not held: terastal <= the baselines on LM serving: {holds}")
+    report["serving_plane"] = dict(partitions=[p.name for p in parts], rates=rates,
+                                   chunk_ms=table, rows=rows, terastal_leq_baselines=holds)
+
+
+def dry_run(torch, report):
+    """Phase (x.3): the dry run of (h)'s prefill and (o)'s train step on
+    ``meta``, its count held to dense_count, and the share of the H100's
+    peak that (h)'s and (o)'s measured times give it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analytics import PEAK_FLOPS
+    from repro_torch.models.model_api import ShapeSpec
+
+    cfg = get_config(DENSE["arch"])
+    measured = {"h": (report["dense_prefill"]["ms_per_prefill"], report["dense_prefill"]["device_ms"]),
+                "o": (report["train_o"]["ms_per_step"], report["train_o"]["device_ms_per_step"])}
+    rows = []
+    for label, kind, L, B in DRYRUN_CELLS:
+        shape = ShapeSpec(label, L, B, kind)
+        rep = dryrun.run_cell(DENSE["arch"], shape, False, verbose=False)
+        want = dryrun.dense_count(cfg, shape)
+        wall_ms, dev_ms = measured[label]
+        row = dict(cell=label, kind=kind, batch=B, seq=L, flops=rep["flops"], dense_count=want,
+                   model_flops=rep["model_flops"], count_s=rep["count_s"],
+                   argument_bytes=rep["argument_bytes"], fits_one_h100=rep["fits_one_h100"],
+                   argument_bytes_per_device=rep["argument_bytes_per_device"],
+                   measured_ms=wall_ms, device_ms=dev_ms,
+                   peak_share=rep["flops"] / (wall_ms / 1e3 * PEAK_FLOPS),
+                   peak_share_device=rep["flops"] / (dev_ms / 1e3 * PEAK_FLOPS) if dev_ms else None)
+        rows.append(row)
+        say("[dryrun] ({cell}) llama3.2-1b {kind} B={batch} L={seq} on meta: counted {flops:.6e} "
+            "FLOPs (dense_count {dense_count:.6e}, model_flops {model_flops:.6e}; {count_s} s); "
+            "arguments {argument_bytes:.4e} bytes (one H100: {fits_one_h100}; per device "
+            "{argument_bytes_per_device}); over the measured {measured_ms:.3f} ms: "
+            "{peak_share:.4f} of the H100's bf16 peak ({peak_share_device} over its device time)"
+            .format(**row))
+        if abs(rep["flops"] - want) > FLOP_RTOL * want:
+            fail(f"the dry run of ({label}) counted {rep['flops']:.6e} FLOPs, not dense_count's "
+                 f"{want:.6e} (rtol {FLOP_RTOL})")
+    report["dryrun"] = rows
 
 
 def main():
@@ -2947,6 +3181,10 @@ def main():
 
     phase_done("phase (ii)")
 
+    # (x.1) (c): a decode chunk of the loaded llama3.2-1b against the analytic floor
+    decode_floor_c(torch, report, model, params)
+    phase_done("phase (x.1) (c)")
+
     # (iii) ssm prefill: mamba2-1.3b at its published widths, bf16, after the
     # llama weights are freed
     del model, params, cache, seq
@@ -3148,6 +3386,17 @@ def main():
     phase_done("phase (vi)")
     if counts != (0, 0, 0):
         fail(f"phase (vi) launched kernels of the port: {counts}")
+
+    # (x) the serving control plane and the dry run: no kernel of the port
+    _zero_counts(torch)
+    decode_floor_m(torch, report)
+    serving_plane(torch, report)
+    dry_run(torch, report)
+    counts = _counts()
+    say(f"[plane] counts read after phase (x.1) (m), (x.2) and (x.3): {counts}")
+    phase_done("phase (x)")
+    if any(counts.values()):
+        fail(f"phase (x) launched kernels of the port: {counts}")
 
     # ---- 5. kernels line -----------------------------------------------------
     # the main path's work: its variant layers once each, B=1, f32

@@ -6,7 +6,9 @@ site of ``models/common.decode_attention``: ``q [B, 1, H, Dh]``, a
 wrapper's ``backend`` / ``interpret`` / ``chunk`` arguments choose among
 TPU paths and have no counterpart here; this module only routes:
 
-* a CPU tensor goes to the plain version (:func:`.ref.decode_attention`);
+* a CPU tensor goes to the plain version (:func:`.ref.decode_attention`),
+  and so does a ``meta`` one (:data:`PLAIN_DEVICES`: the dry run's
+  shapes, so a FLOP count sees the plain version's products);
 * a CUDA tensor goes to the hand-written kernel (:mod:`.kernel`), which
   launches or raises.  There is no fallback.
 """
@@ -19,6 +21,9 @@ import torch
 
 from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
 from repro_torch.kernels.decode_attn.ref import decode_attention
+
+#: device types routed to the plain version; every other goes to the kernel
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def gqa_decode_attention(
@@ -35,7 +40,7 @@ def gqa_decode_attention(
     passes it, so no layer makes a tensor of its own.  ``pos + 1`` also
     sizes the kernel's grid (the positions it can have to read).  The
     plain version reads ``pos`` alone."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return decode_attention(q, cache_k, cache_v, pos)
     if valid_len is None:
         valid_len = torch.full((q.shape[0],), pos + 1, dtype=torch.int32, device=q.device)

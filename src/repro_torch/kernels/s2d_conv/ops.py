@@ -5,8 +5,10 @@ package picked Pallas tiles against a VMEM budget, the CUDA kernel
 (:mod:`.kernel`) takes the whole GEMM; this module only routes:
 
 * :func:`s2d_variant_conv` sends a CUDA tensor to the kernel and a CPU
-  tensor to the plain version (:func:`.ref.s2d_conv_ref`).  There is no
-  fallback: a kernel that cannot run on a CUDA tensor raises.
+  or ``meta`` tensor (:data:`PLAIN_DEVICES`; ``meta``: the dry run's
+  shapes, so a FLOP count sees the plain version's products) to the
+  plain version (:func:`.ref.s2d_conv_ref`).  There is no fallback: a
+  kernel that cannot run on a CUDA tensor raises.
 * :func:`s2d_variant_conv_rs` is the R x S > 1 case — im2col at the d2s
   resolution, then a product that the JAX package leaves to XLA's
   ``einsum`` and this port to ``torch.matmul``.
@@ -20,10 +22,13 @@ import torch.nn.functional as F
 from repro_torch.kernels.s2d_conv.kernel import s2d_conv_cuda
 from repro_torch.kernels.s2d_conv.ref import d2s, s2d, s2d_conv_ref
 
+#: device types routed to the plain version; every other goes to the kernel
+PLAIN_DEVICES = ("cpu", "meta")
+
 
 def s2d_variant_conv(x: torch.Tensor, w: torch.Tensor, gamma: int) -> torch.Tensor:
     """Fused variant pointwise conv. x: [B,H,W,C], w: [C/g^2, K/g^2]."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return s2d_conv_ref(x, w, gamma)
     return s2d_conv_cuda(x, w, gamma)
 

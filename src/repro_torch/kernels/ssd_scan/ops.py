@@ -5,7 +5,9 @@ prefill and its training forward (``models.mamba2.mamba_block_apply``)
 call :func:`ssd_scan`:
 
 * a CPU tensor goes to the plain blocked version (:func:`.ref.ssd_chunked`),
-  which autograd differentiates as it is;
+  which autograd differentiates as it is, and so does a ``meta`` one
+  (:data:`PLAIN_DEVICES`: the dry run's shapes, so a FLOP count sees the
+  plain version's products);
 * a CUDA tensor goes to the hand-written kernel (:mod:`.kernel`), which
   launches or raises.  There is no fallback.  While autograd records
   (grad enabled and an input requiring grad) the kernel runs inside
@@ -27,6 +29,9 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+#: device types routed to the plain version; every other goes to the kernel
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def plain_grads(inputs: Sequence[torch.Tensor], needs: Sequence[bool], chunk: int,
@@ -62,7 +67,7 @@ class SSDScan(torch.autograd.Function):
 def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
              dt: torch.Tensor, chunk: int = 256) -> torch.Tensor:
     """x [Bt, L, H, P], log_a / dt [Bt, L, H], B / C [Bt, L, N] -> y [Bt, L, H, P]."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
         return ssd_chunked(x, log_a, B, C, dt, chunk)

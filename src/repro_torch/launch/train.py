@@ -15,8 +15,13 @@ SIGTERM, straggler events.  It runs on the CUDA card unless the caller
 passes ``device="cpu"``; without a card and without that, it raises.  On
 the card the ssm and hybrid families run every SSD scan of the forward
 (and of each layer's recompute) through the hand-written kernel.
-Weights are drawn at random from ``seed``.  ``use_mesh`` (the
-reference's production mesh) waits for the mesh tooling.
+Weights are drawn at random from ``seed``.  ``use_mesh`` places the
+parameters by the model's ``param_specs("train")`` fitted to ``mesh``
+(the reference's production mesh when None), which must hold as many
+devices as the port runs on, one: a one-card layout
+(``launch.mesh.one_device_mesh()``) trains as without it, and the
+production layout raises, naming both counts, as the reference's does on
+a host without 256 devices.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.registry import ARCHS
 from repro_torch.data.pipeline import DataConfig, Pipeline
+from repro_torch.launch.mesh import fitted_shardings, make_production_mesh, require_devices
 from repro_torch.models.model_api import build_model
 from repro_torch.optim.adamw import OptConfig, init_opt_state, make_train_step
 from repro_torch.runtime.ft import Supervisor
@@ -50,18 +56,22 @@ def run(
     log_every: int = 10,
     seed: int = 0,
     device: Union[str, torch.device, None] = None,
+    mesh=None,
 ):
     """Train ``steps`` steps; returns ``final_loss``, ``losses`` (one a step
     run), ``straggler_events``, ``params`` and ``step_s`` (each step's
     seconds, from its batch on the device to its loss on the host)."""
     if use_mesh:
-        raise NotImplementedError("use_mesh: the production mesh waits for the mesh tooling "
-                                  "(ROADMAP A10); one card trains without it")
+        mesh = mesh if mesh is not None else make_production_mesh()
+        require_devices(mesh, 1)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced(dtype="float32")
     model = build_model(cfg, device)
     params = model.init(torch.Generator(device=model.device).manual_seed(seed))
+    if use_mesh:
+        # every spec fits a one-device layout, so the parameters stay where they are
+        fitted_shardings(model.param_specs("train"), params, mesh)
     opt = init_opt_state(params)
     opt_cfg = OptConfig(warmup_steps=max(1, steps // 20), total_steps=steps)
     train_step = make_train_step(model.loss, opt_cfg)

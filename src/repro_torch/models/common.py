@@ -11,8 +11,9 @@ scores and softmax, the GLU gate, the loss's logits.
 
 ``maybe_remat`` is the reference's activation-checkpoint policy on
 ``torch.utils.checkpoint``; ``shard_hint`` is the identity (one card, no
-mesh).  The sharding axes ``AX_DATA`` / ``AX_MODEL`` wait for the mesh
-tooling.
+mesh).  The logical sharding axes ``AX_DATA`` / ``AX_MODEL`` are
+``repro_torch.launch.mesh``'s, re-exported here as the reference
+exports them.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from repro_torch.launch.mesh import AX_DATA, AX_MODEL  # noqa: F401 (re-exported)
 from repro_torch.tree import tree_leaves
 
 Params = Dict[str, Any]

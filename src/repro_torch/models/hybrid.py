@@ -19,7 +19,9 @@ every site's gradient.  The decode cache is written in place
 (the Mamba states too), so every block owns its tensors: none is a
 broadcast view of another.
 
-Left for a later slice: the sharding specs (nothing to shard on one card).
+:func:`hybrid_param_specs` and :func:`hybrid_cache_specs` are the
+reference's sharding trees as data, keyed as the port's trees (see
+``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -37,20 +39,28 @@ from repro_torch.models.common import (
     maybe_remat,
     rmsnorm,
 )
+from repro_torch.launch.mesh import AX_DATA, AX_MODEL
+from repro_torch.launch.mesh import PartitionSpec as P
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba2 import (
     init_mamba_block,
     mamba_block_apply,
     mamba_block_decode,
     mamba_init_state,
+    ssm_param_specs,
 )
 from repro_torch.models.transformer import (
+    _attn_specs,
     _layer,
     _layers,
+    _mlp_specs,
     _stack,
+    _stack_specs,
     dense_block_apply,
     dense_block_decode,
     init_dense_block,
+    kv_cache_spec,
+    replicate_specs,
 )
 
 Params = Dict[str, Any]
@@ -156,3 +166,39 @@ def hybrid_decode_step(
     h = rmsnorm(params["final_norm"], x1, cfg.norm_eps)
     logits = (h[:, 0, :] @ params["embed"]["emb"].T).float()
     return logits, cache
+
+
+# --------------------------------------------------------------- shardings --
+
+
+def hybrid_param_specs(cfg: ModelConfig, mode: str = "train") -> Params:
+    mamba_block = ssm_param_specs(cfg, mode)["blocks"]  # stacked once
+    specs = _hybrid_specs_inner(cfg, mamba_block)
+    if cfg.fsdp_all_axes and mode == "train":
+        return replicate_specs(specs)
+    return specs
+
+
+def _hybrid_specs_inner(cfg: ModelConfig, mamba_block) -> Params:
+    return {
+        "embed": {"emb": P(AX_MODEL, AX_DATA)},
+        "mamba_blocks": _stack_specs(mamba_block),
+        "shared_attn": {
+            "attn_norm": {"scale": P(None)},
+            "attn": _attn_specs(),
+            "mlp_norm": {"scale": P(None)},
+            "mlp": _mlp_specs(),
+        },
+        "final_norm": {"scale": P(None)},
+    }
+
+
+def hybrid_cache_specs(cfg: ModelConfig, seq_shard: bool = False) -> Params:
+    attn = kv_cache_spec(cfg, seq_shard)
+    bdim = None if seq_shard else AX_DATA
+    return {
+        "attn_k": attn,
+        "attn_v": attn,
+        "conv": P(None, None, bdim, None, AX_MODEL),
+        "ssm": P(None, None, bdim, AX_MODEL, None, None),
+    }

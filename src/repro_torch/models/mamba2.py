@@ -22,8 +22,9 @@ leading ``n_layers`` axis, as in JAX, and the port loops over them;
 :func:`ssm_loss` runs each block under ``maybe_remat``, as the reference's
 scan body.
 
-Left for a later slice: the ``ssm_*_specs`` sharding trees (nothing to
-shard on one card).
+:func:`ssm_param_specs` and :func:`ssm_cache_specs` are the reference's
+sharding trees as data, keyed as the port's trees (see
+``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -46,7 +47,9 @@ from repro_torch.models.common import (
     rmsnorm,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _layer, _layers, _stack
+from repro_torch.launch.mesh import AX_DATA, AX_MODEL
+from repro_torch.launch.mesh import PartitionSpec as P
+from repro_torch.models.transformer import _layer, _layers, _stack, _stack_specs
 
 Params = Dict[str, Any]
 
@@ -296,3 +299,56 @@ def ssm_decode_step(
     h = rmsnorm(params["final_norm"], x1, cfg.norm_eps)
     logits = (h[:, 0, :] @ params["embed"]["emb"].T).float()
     return logits, cache
+
+
+# --------------------------------------------------------------- shardings --
+
+
+def ssm_param_specs(cfg: ModelConfig, mode: str = "train") -> Params:
+    if cfg.fsdp_all_axes:
+        # Small-model ZeRO-1 profile: NO tensor parallelism — batch
+        # data-parallel across (data, model), parameters REPLICATED (a
+        # 1.3B model fits), and only the f32 optimizer moments sharded (see
+        # repro_torch.optim.adamw.zero1_opt_specs).  Eliminates both the
+        # per-block TP all-reduces AND the per-layer FSDP weight gathers;
+        # the only collectives left are one gradient all-reduce + the
+        # updated-parameter all-gather.
+        block = {
+            "norm": {"scale": P(None)},
+            "in_proj": {"w": P(None, None)},
+            "conv_w": P(None, None),
+            "conv_b": P(None),
+            "A_log": P(None),
+            "D": P(None),
+            "dt_bias": P(None),
+            "out_norm": {"scale": P(None)},
+            "out_proj": {"w": P(None, None)},
+        }
+        return {
+            "embed": {"emb": P(None, None)},
+            "blocks": _stack_specs(block),
+            "final_norm": {"scale": P(None)},
+        }
+    block = {
+        "norm": {"scale": P(None)},
+        "in_proj": {"w": P(AX_DATA, AX_MODEL)},
+        "conv_w": P(None, AX_MODEL),
+        "conv_b": P(AX_MODEL),
+        "A_log": P(None),
+        "D": P(None),
+        "dt_bias": P(None),
+        "out_norm": {"scale": P(AX_MODEL)},
+        "out_proj": {"w": P(AX_MODEL, AX_DATA)},
+    }
+    return {
+        "embed": {"emb": P(AX_MODEL, AX_DATA)},
+        "blocks": _stack_specs(block),
+        "final_norm": {"scale": P(None)},
+    }
+
+
+def ssm_cache_specs(cfg: ModelConfig, seq_shard: bool = False) -> Params:
+    return {
+        "conv": P(None, AX_DATA, None, AX_MODEL),
+        "ssm": P(None, AX_DATA, AX_MODEL, None, None),
+    }

@@ -22,7 +22,9 @@ attention through the decode-attention kernel, one ``valid_len`` a step
 for all blocks.  As in the reference, the decode step's dense dispatch
 reads every expert's weights, whichever experts the batch's tokens chose.
 
-Left for a later slice: the sharding specs.
+:func:`moe_param_specs` and :func:`moe_cache_specs` are the reference's
+sharding trees as data, keyed as the port's trees (see
+``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -43,18 +45,24 @@ from repro_torch.models.common import (
     maybe_remat,
     rmsnorm,
 )
+from repro_torch.launch.mesh import AX_DATA, AX_MODEL
+from repro_torch.launch.mesh import PartitionSpec as P
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
+    _attn_specs,
     _layer,
     _layers,
     _lm_head_w,
     _stack,
+    _stack_specs,
     attn_apply_decode,
     attn_apply_train,
     dense_block_apply,
     dense_block_decode,
+    dense_param_specs,
     init_attn,
     init_dense_block,
+    kv_cache_spec,
 )
 
 Params = Dict[str, Any]
@@ -66,8 +74,11 @@ Params = Dict[str, Any]
 def _expert_bank(gen: torch.Generator, shape, scale: float, dtype: torch.dtype) -> torch.Tensor:
     """``[E, ...]`` normal weights times ``scale``, drawn in f32 one expert
     at a time and cast, so that the f32 bank never exists whole (llama4's
-    is 21.5 GB in f32)."""
+    is 21.5 GB in f32).  On ``meta`` (the dry run) there is nothing to
+    draw: the bank is its shape."""
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if out.device.type == "meta":
+        return out
     for e in range(shape[0]):
         w = torch.randn(shape[1:], generator=gen, dtype=torch.float32, device=gen.device)
         out[e] = (w * scale).to(dtype)
@@ -294,3 +305,45 @@ def moe_decode_step(
     h = rmsnorm(params["final_norm"], x1, cfg.norm_eps)
     logits = (h[:, 0, :] @ _lm_head_w(cfg, params)).float()
     return logits, cache
+
+
+# --------------------------------------------------------------- shardings --
+
+
+def moe_param_specs(cfg: ModelConfig, mode: str = "train") -> Params:
+    # 2D expert sharding in BOTH modes: experts -> DATA axis (expert
+    # parallelism on the same axis tokens are sharded on, so dispatch
+    # lowers to token-sized all-to-alls), d_ff -> model axis (TP within
+    # each expert).  Weights stay put and tokens move.
+    moe = {
+        "router": {"w": P(None, None)},
+        "w_gate": P(AX_DATA, None, AX_MODEL),
+        "w_up": P(AX_DATA, None, AX_MODEL),
+        "w_down": P(AX_DATA, AX_MODEL, None),
+    }
+    moe_block = {
+        "attn_norm": {"scale": P(None)},
+        "attn": _attn_specs(),
+        "mlp_norm": {"scale": P(None)},
+        "moe": moe,
+    }
+    specs = {
+        "embed": {"emb": P(AX_MODEL, AX_DATA)},
+        "moe_blocks": _stack_specs(moe_block),
+        "final_norm": {"scale": P(None)},
+        "lm_head": {"w": P(AX_DATA, AX_MODEL)},
+    }
+    if cfg.moe_every > 1:
+        dense_block = dense_param_specs(cfg, mode)["blocks"]  # already stacked once
+        specs["dense_blocks"] = _stack_specs(dense_block)
+    return specs
+
+
+def moe_cache_specs(cfg: ModelConfig, seq_shard: bool = False) -> Params:
+    spec = kv_cache_spec(cfg, seq_shard)
+    out = {"moe_k": spec, "moe_v": spec}
+    if cfg.moe_every > 1:
+        dspec = kv_cache_spec(cfg, seq_shard, extra_lead=1)
+        out["dense_k"] = dspec
+        out["dense_v"] = dspec
+    return out

@@ -11,8 +11,11 @@ leaf unbound once, :func:`_layers`), the layer's body under
 reuses the dense block (``dense_block_apply``, ``dense_block_decode``) as
 its shared attention block.
 
-Left for a later slice: the ``*_specs`` sharding trees (nothing to shard
-on one card).
+The ``*_specs`` functions are the reference's sharding trees as data
+(``repro_torch.launch.mesh.PartitionSpec`` leaves over the logical axes
+``AX_DATA`` / ``AX_MODEL``), keyed as the port's parameter and cache
+trees: the dry run fits them to the production layouts to count
+per-device bytes; one card shards nothing.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.decode_attn.ops import gqa_decode_attention
+from repro_torch.launch.mesh import AX_DATA, AX_MODEL
+from repro_torch.launch.mesh import PartitionSpec as P
 from repro_torch.models.common import (
     apply_rope,
     chunked_softmax_xent,
@@ -37,6 +42,7 @@ from repro_torch.models.common import (
     rmsnorm,
 )
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
 
@@ -282,3 +288,83 @@ def dense_decode_step(
     h = rmsnorm(params["final_norm"], x1, cfg.norm_eps)
     logits = (h[:, 0, :] @ _lm_head_w(cfg, params)).float()
     return logits, cache
+
+
+# --------------------------------------------------------------- shardings --
+
+
+def _attn_specs() -> Params:
+    return {
+        "wq": {"w": P(AX_DATA, AX_MODEL)},
+        "wk": {"w": P(AX_DATA, AX_MODEL)},
+        "wv": {"w": P(AX_DATA, AX_MODEL)},
+        "wo": {"w": P(AX_MODEL, AX_DATA)},
+    }
+
+
+def _mlp_specs() -> Params:
+    return {
+        "w_gate": {"w": P(AX_DATA, AX_MODEL)},
+        "w_up": {"w": P(AX_DATA, AX_MODEL)},
+        "w_down": {"w": P(AX_MODEL, AX_DATA)},
+    }
+
+
+def _stack_specs(tree: Params) -> Params:
+    """Prepend the stacked layer axis (unsharded) to every leaf spec (the
+    reference's ``_stack``; :func:`_stack` here stacks tensors)."""
+    return tree_map(lambda s: P(None, *s), tree)
+
+
+def replicate_specs(tree: Params) -> Params:
+    """ZeRO-1 profile: every parameter replicated (optimizer moments are
+    sharded separately via repro_torch.optim.adamw.zero1_opt_specs)."""
+    return tree_map(lambda s: P(*([None] * len(s))), tree)
+
+
+def dense_param_specs(cfg: ModelConfig, mode: str = "train") -> Params:
+    """PartitionSpec tree matching init_dense_model's params.
+
+    ``train``: FSDP over (pod, data) x TP over model.
+    ``serve``: weights sharded over BOTH axes (no optimizer state, small
+    batch; maximal weight distribution keeps giant models resident)."""
+    block = {
+        "attn_norm": {"scale": P(None)},
+        "attn": _attn_specs(),
+        "mlp_norm": {"scale": P(None)},
+        "mlp": _mlp_specs(),
+    }
+    specs = {
+        "embed": {"emb": P(AX_MODEL, AX_DATA)},
+        "blocks": _stack_specs(block),
+        "final_norm": {"scale": P(None)},
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = {"w": P(AX_DATA, AX_MODEL)}
+    if cfg.fsdp_all_axes and mode == "train":
+        return replicate_specs(specs)
+    return specs
+
+
+TP_SIZE = 16  # model-axis size of both production meshes (fixed by target)
+
+
+def kv_cache_spec(cfg: ModelConfig, seq_shard: bool, extra_lead: int = 0) -> P:
+    """Cache sharding for [*, B, L, Hkv, Dh]: shard heads over `model`
+    when divisible by the TP width, else shard the sequence dim; batch
+    goes to the data axis unless batch==1 (seq_shard), in which case the
+    sequence takes the data axis too."""
+    lead = (None,) * (1 + extra_lead)
+    heads_ok = cfg.n_kv_heads % TP_SIZE == 0
+    if seq_shard:
+        if heads_ok:
+            return P(*lead, None, AX_DATA, AX_MODEL, None)
+        return P(*lead, None, ("pod", "data", "model"), None, None)
+    if heads_ok:
+        return P(*lead, AX_DATA, None, AX_MODEL, None)
+    return P(*lead, AX_DATA, AX_MODEL, None, None)
+
+
+def dense_cache_specs(cfg: ModelConfig, seq_shard: bool = False) -> Params:
+    spec = kv_cache_spec(cfg, seq_shard)
+    return {"k": spec, "v": spec}

@@ -12,7 +12,8 @@ runs through the decode-attention kernel on the card.  Training
 (:func:`vlm_loss`) prepends the patch embeddings the same way and masks
 the loss to the text positions.
 
-Left for a later slice: the sharding specs.
+The sharding trees are dense's too (``vlm_param_specs``,
+``vlm_cache_specs``).
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ from repro_torch.models.common import chunked_softmax_xent, embed
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
     _lm_head_w,
+    dense_cache_specs,
     dense_decode_step,
     dense_init_cache,
+    dense_param_specs,
     forward_hidden_dense,
     init_dense_model,
 )
@@ -34,7 +37,9 @@ from repro_torch.models.transformer import (
 Params = Dict[str, Any]
 
 init_vlm_model = init_dense_model
+vlm_param_specs = dense_param_specs
 vlm_decode_step = dense_decode_step
+vlm_cache_specs = dense_cache_specs
 # the cache must hold the patch prefix + generated text
 vlm_init_cache = dense_init_cache
 

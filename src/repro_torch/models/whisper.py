@@ -19,7 +19,9 @@ the cross K/V that :func:`encdec_prefill_cross` writes once (into the
 cache, in place) and decode only reads.  A step builds the kernel's two
 ``valid_len`` tensors once (``pos + 1`` and ``encoder_seq``) for all layers.
 
-Left for a later slice: the sharding specs (nothing to shard on one card).
+:func:`encdec_param_specs` and :func:`encdec_cache_specs` are the
+reference's sharding trees as data, keyed as the port's trees (see
+``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -44,7 +46,19 @@ from repro_torch.models.common import (
     rmsnorm,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import _layer, _layers, _stack, attn_apply_decode, init_attn
+from repro_torch.launch.mesh import AX_DATA, AX_MODEL
+from repro_torch.launch.mesh import PartitionSpec as P
+from repro_torch.models.transformer import (
+    _attn_specs,
+    _layer,
+    _layers,
+    _stack,
+    _stack_specs,
+    attn_apply_decode,
+    init_attn,
+    kv_cache_spec,
+    replicate_specs,
+)
 
 Params = Dict[str, Any]
 
@@ -223,3 +237,41 @@ def encdec_decode_step(
     h = rmsnorm(params["final_norm"], x1, cfg.norm_eps)
     logits = (h[:, 0, :] @ params["embed"]["emb"].T).float()
     return logits, cache
+
+
+# --------------------------------------------------------------- shardings --
+
+
+def encdec_param_specs(cfg: ModelConfig, mode: str = "train") -> Params:
+    mlp = {"w1": {"w": P(AX_DATA, AX_MODEL)}, "w2": {"w": P(AX_MODEL, AX_DATA)}}
+    enc_block = {
+        "attn_norm": {"scale": P(None)},
+        "attn": _attn_specs(),
+        "mlp_norm": {"scale": P(None)},
+        "mlp": mlp,
+    }
+    dec_block = {
+        "self_norm": {"scale": P(None)},
+        "self_attn": _attn_specs(),
+        "cross_norm": {"scale": P(None)},
+        "cross_attn": _attn_specs(),
+        "mlp_norm": {"scale": P(None)},
+        "mlp": mlp,
+    }
+    specs = {
+        "embed": {"emb": P(AX_MODEL, AX_DATA)},
+        "enc_blocks": _stack_specs(enc_block),
+        "dec_blocks": _stack_specs(dec_block),
+        "enc_norm": {"scale": P(None)},
+        "final_norm": {"scale": P(None)},
+    }
+    if cfg.fsdp_all_axes and mode == "train":
+        return replicate_specs(specs)
+    return specs
+
+
+def encdec_cache_specs(cfg: ModelConfig, seq_shard: bool = False) -> Params:
+    spec = kv_cache_spec(cfg, seq_shard)
+    # cross K/V has encoder_seq (1500) length: the dry run's fitted specs
+    # drop non-divisible axes
+    return {"k": spec, "v": spec, "xk": spec, "xv": spec}

@@ -13,8 +13,9 @@ The update writes the parameters and the moments in place (under
 ``torch.no_grad``), so that a full-width step does not hold two copies of
 them; it returns the same trees, keeping the reference's
 ``(params, opt, batch) -> (params, opt, metrics)`` contract.
-``opt_state_specs`` and ``zero1_opt_specs`` describe a TPU mesh and wait
-for the mesh tooling.
+``opt_state_specs`` and ``zero1_opt_specs`` are the reference's sharding
+trees of the optimiser state as data (``repro_torch.launch.mesh``), keyed
+as :class:`OptState`; the dry run fits them to the production layouts.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.launch.mesh import PartitionSpec as P
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Any
@@ -54,6 +56,40 @@ def init_opt_state(params: Params) -> OptState:
     v = tree_map(torch.zeros_like, m)
     dev = tree_leaves(params)[0].device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev), m=m, v=v)
+
+
+def opt_state_specs(param_specs: Params) -> OptState:
+    """m/v shard exactly like their parameters; step replicated."""
+    return OptState(step=P(), m=param_specs, v=tree_map(lambda s: s, param_specs))
+
+
+def zero1_opt_specs(param_specs: Params, opt_shape: "OptState" = None) -> OptState:
+    """ZeRO-1: parameters replicated, f32 moments sharded across every
+    mesh axis.  Shape-aware: each moment leaf is sharded on its largest
+    dim divisible by the full device count (256/512 both divide when 512
+    does not, fitted_shardings drops the pod axis), else by 16, else
+    replicated (only tiny norm/bias leaves)."""
+    ALL = ("pod", "data", "model")
+
+    def leaf_spec(shape_leaf):
+        dims = shape_leaf.shape
+        best = None
+        for want in (512, 256, 32, 16):
+            cands = [d for d in range(len(dims)) if dims[d] % want == 0 and dims[d] >= want]
+            if cands:
+                best = max(cands, key=lambda d: dims[d])
+                break
+        if best is None:
+            return P()
+        entries = [None] * len(dims)
+        entries[best] = ALL if dims[best] % 256 == 0 else ("data",)
+        return P(*entries)
+
+    if opt_shape is not None:
+        m_specs = tree_map(leaf_spec, opt_shape.m)
+        return OptState(step=P(), m=m_specs, v=tree_map(lambda s: s, m_specs))
+    shard = tree_map(lambda s: P(ALL), param_specs)
+    return OptState(step=P(), m=shard, v=tree_map(lambda s: s, shard))
 
 
 def lr_at(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:

@@ -14,10 +14,14 @@ and :class:`Supervisor` as they are, over the port's checkpoints
 * **Straggler detection**: steps slower than ``factor`` x the running
   median of the last ``window`` step times raise an event.
 
-The reference's ``elastic_remesh`` restores onto another mesh; on one
-card its counterpart is ``Supervisor.restore(step, like, device)``
-(``ckpt.restore``), which restores onto any device, whichever wrote the
-checkpoint (CPU <-> card).  The mesh form waits for the mesh tooling.
+:func:`elastic_remesh` restores a checkpoint onto another layout
+(``repro_torch.launch.mesh``): the spec tree is fitted to the layout,
+which must hold as many devices as the port runs on (one: every axis of
+size 1), and the arrays are restored onto ``device``; a larger layout
+raises, naming both counts, as the reference's mesh does on a host
+without its devices.  ``Supervisor.restore(step, like, device)``
+(``ckpt.restore``) restores onto any device, whichever wrote the
+checkpoint (CPU <-> card).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import ckpt as ckpt_lib
+from repro_torch.launch.mesh import fitted_shardings, require_devices
 
 
 @dataclasses.dataclass
@@ -108,3 +113,14 @@ class Supervisor:
             self.checkpoint(step, state)
         return "ok", None
 
+
+def elastic_remesh(ckpt_dir: str, step: int, like, new_mesh, spec_tree,
+                   device: Union[str, torch.device, None] = None):
+    """Restore a checkpoint onto a DIFFERENT layout (scale up/down): the
+    checkpoint stores full (unsharded) arrays, so resharding is fitting
+    the spec tree to the new layout.  The port runs on one device, so the
+    layout must have size 1; the arrays land on ``device`` (the card when
+    None)."""
+    require_devices(new_mesh, 1)
+    fitted_shardings(spec_tree, like, new_mesh)
+    return ckpt_lib.restore(ckpt_dir, step, like, device)

@@ -342,3 +342,63 @@ def test_new_modules_run_without_jax_or_repro():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "OK"
+
+
+#: the JAX package's modules whose counterpart has another name, and the one
+#: with none (a TPU ``CompilerParams`` shim, not a kernel)
+RENAMED = {"core/budget_jax.py": "core/budget_torch.py",
+           "core/scheduler_jax.py": "core/scheduler_torch.py"}
+NO_COUNTERPART = {"kernels/common.py"}
+
+
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    """Every module of ``src/repro/`` has one in ``src/repro_torch/``: the
+    serving control plane (``launch/analytics.py``,
+    ``runtime/serve_runtime.py``, ``launch/roofline.py``) and the mesh
+    tooling (``launch/mesh.py``, ``launch/dryrun.py``) among them, with the
+    reference's sharding-spec functions in the family modules."""
+    ref = ROOT / "src" / "repro"
+    missing = []
+    for p in sorted(ref.rglob("*.py")):
+        rel = p.relative_to(ref).as_posix()
+        if rel.endswith("__init__.py") or rel in NO_COUNTERPART:
+            continue
+        if not (PORT / RENAMED.get(rel, rel)).is_file():
+            missing.append(rel)
+    assert not missing, missing
+    from repro_torch.models import hybrid, mamba2, moe, transformer, vlm, whisper
+    from repro_torch.optim import adamw
+
+    for mod, names in [
+        (transformer, ["_attn_specs", "_mlp_specs", "_stack_specs", "replicate_specs",
+                       "dense_param_specs", "TP_SIZE", "kv_cache_spec", "dense_cache_specs"]),
+        (mamba2, ["ssm_param_specs", "ssm_cache_specs"]),
+        (hybrid, ["hybrid_param_specs", "_hybrid_specs_inner", "hybrid_cache_specs"]),
+        (whisper, ["encdec_param_specs", "encdec_cache_specs"]),
+        (moe, ["moe_param_specs", "moe_cache_specs"]),
+        (vlm, ["vlm_param_specs", "vlm_cache_specs"]),
+        (adamw, ["opt_state_specs", "zero1_opt_specs"]),
+    ]:
+        assert all(hasattr(mod, n) for n in names), (mod.__name__, names)
+
+
+def test_the_control_plane_and_mesh_modules_load_no_jax():
+    """The new modules alone, in a fresh process: no ``jax`` and nothing of
+    the JAX package in ``sys.modules``."""
+    mods = ["repro_torch.launch.analytics", "repro_torch.launch.roofline",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.runtime.serve_runtime"]
+    script = "\n".join([
+        "import importlib, sys",
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}]",
+        f"for m in {mods!r}:",
+        "    importlib.import_module(m)",
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))",
+        "assert not bad, bad",
+        "print('OK')",
+    ])
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", script], env=env, cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "OK", proc.stderr

@@ -15,7 +15,8 @@ The SSD kernel cannot run here: its ``autograd.Function`` is held with
 the kernel entry replaced by the plain ``ssd_chunked`` (the backward is
 the plain version's gradient either way), and the routing that sends a
 non-CPU tensor under grad through the Function is held on ``meta``
-tensors, which take the kernel's route without a card.
+tensors sent down the kernel's route (``ops.PLAIN_DEVICES`` narrowed to
+the CPU: the dry run's ``meta`` tensors take the plain version).
 """
 
 import shutil
@@ -232,12 +233,14 @@ def test_ssd_function_skips_gradients_nobody_needs(monkeypatch):
 
 def test_a_scan_off_the_cpu_under_grad_always_has_a_grad_fn(monkeypatch):
     """The routing of ``ops.ssd_scan`` on tensors that are not on the CPU
-    (``meta`` here, which take the CUDA route without a card): under grad,
+    (``meta`` here, sent down the CUDA route by taking it out of
+    ``PLAIN_DEVICES``, since the CPU tests have no card): under grad,
     with an input requiring it, the output comes from the Function and has
     its ``grad_fn``; under ``no_grad``, or with no input requiring grad,
     the kernel entry is called directly.  The plain version is never
     reached in the forward."""
     entry = []
+    monkeypatch.setattr(ssd_ops, "PLAIN_DEVICES", ("cpu",))
     monkeypatch.setattr(ssd_ops, "ssd_scan_cuda",
                         lambda x, *a: entry.append(x.requires_grad) or torch.empty_like(x))
     plain = []
@@ -311,7 +314,9 @@ def test_run_matches_jax_step_for_step(tmp_path):
 
 
 def test_run_refuses_the_mesh():
-    with pytest.raises(NotImplementedError, match="A10"):
+    """The production mesh holds 256 devices and the port runs on one: it
+    raises, naming both counts, as the reference's does on such a host."""
+    with pytest.raises(RuntimeError, match="needs 256 devices; the port runs on 1"):
         train.run("llama3.2-1b", steps=1, use_mesh=True, device="cpu")
 
 
