@@ -1,0 +1,12 @@
+"""``ssd_scan_roofline.prefill``: the least time of the window's SSD scan calls
+(``h100bench/work/roofline.ssd_floor``: inputs read once, y written once, the
+chunked algorithm's products) over the device time of the kernels a call
+launches, named here with their launches a call, in %."""
+
+from h100bench.readers import kernel_roofline
+
+KERNELS = {"ssd_scan_cb_kernel": 1, "ssd_scan_kernel": 1}
+
+
+def read(run):
+    return kernel_roofline(run, KERNELS, "ssd_scan")
