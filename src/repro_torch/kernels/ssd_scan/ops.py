@@ -29,6 +29,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+from repro_torch.spans import span
 
 #: device types routed to the plain version; every other goes to the kernel
 PLAIN_DEVICES = ("cpu", "meta")
@@ -51,7 +52,11 @@ def plain_grads(inputs: Sequence[torch.Tensor], needs: Sequence[bool], chunk: in
 
 
 class SSDScan(torch.autograd.Function):
-    """The kernel's forward under autograd; the plain version's backward."""
+    """The kernel's forward under autograd; the plain version's backward,
+    inside the span ``ssd_scan.backward``.  ``backward_calls`` counts the
+    backward's calls since the process began."""
+
+    backward_calls = 0
 
     @staticmethod
     def forward(ctx, x, log_a, B, C, dt, chunk):
@@ -61,18 +66,27 @@ class SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        return plain_grads(ctx.saved_tensors, ctx.needs_input_grad[:5], ctx.chunk, dy) + (None,)
+        SSDScan.backward_calls += 1
+        with span("ssd_scan.backward"):
+            return plain_grads(ctx.saved_tensors, ctx.needs_input_grad[:5], ctx.chunk,
+                               dy) + (None,)
 
 
 def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
              dt: torch.Tensor, chunk: int = 256) -> torch.Tensor:
-    """x [Bt, L, H, P], log_a / dt [Bt, L, H], B / C [Bt, L, N] -> y [Bt, L, H, P]."""
+    """x [Bt, L, H, P], log_a / dt [Bt, L, H], B / C [Bt, L, N] -> y [Bt, L, H, P].
+
+    The span ``ssd_scan`` holds the route that computes the scan, whichever
+    it is; the copies of the model's views into contiguous tensors lie
+    outside it, with the caller's passes."""
     if x.device.type in PLAIN_DEVICES:
         from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
-        return ssd_chunked(x, log_a, B, C, dt, chunk)
+        with span("ssd_scan"):
+            return ssd_chunked(x, log_a, B, C, dt, chunk)
     # the model hands in views of its (x, B, C) projection
     args = tuple(t.contiguous() for t in (x, log_a, B, C, dt))
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return SSDScan.apply(*args, chunk)
-    return ssd_scan_cuda(*args, chunk)
+    with span("ssd_scan"):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+            return SSDScan.apply(*args, chunk)
+        return ssd_scan_cuda(*args, chunk)

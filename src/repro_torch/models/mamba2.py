@@ -50,6 +50,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.launch.mesh import AX_DATA, AX_MODEL
 from repro_torch.launch.mesh import PartitionSpec as P
 from repro_torch.models.transformer import _layer, _layers, _stack, _stack_specs
+from repro_torch.spans import span
 
 Params = Dict[str, Any]
 
@@ -180,23 +181,30 @@ def _ssm_from_xbc(cfg: ModelConfig, p: Params, xbc: torch.Tensor, dt_raw: torch.
 
 
 def mamba_block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """One block over a whole sequence, x: [B, L, D] -> [B, L, D]."""
-    res = x
-    h = rmsnorm(p["norm"], x, cfg.norm_eps)
-    z, xbc, dt_raw = _split_in_proj(cfg, linear(p["in_proj"], h))
-    # causal depthwise conv1d (width W) over the (x, B, C) channels; in x's
-    # dtype, then + conv_b (f32) promotes to f32 as in JAX
-    W, L = cfg.ssm_conv_width, xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, W - 1, 0))
-    conv = sum(pad[:, i : i + L, :] * p["conv_w"][i] for i in range(W))
-    xbc = F.silu((conv + p["conv_b"]).float()).to(x.dtype)
-    xh, log_a, Bm, Cm, dt = _ssm_from_xbc(cfg, p, xbc, dt_raw)
-    y = ssd_scan(xh, log_a, Bm, Cm, dt, cfg.ssm_chunk)
-    y = y + p["D"][None, None, :, None] * xh.float()
-    y = y.reshape(x.shape[0], x.shape[1], cfg.d_inner)
-    y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    y = rmsnorm(p["out_norm"], y, cfg.norm_eps)
-    return res + linear(p["out_proj"], y)
+    """One block over a whole sequence, x: [B, L, D] -> [B, L, D].  Spans
+    ``mamba.block`` around it, ``mamba.in_proj`` and ``mamba.out_proj``
+    around its projections; the scan's own is ``ssd_scan``'s."""
+    with span("mamba.block"):
+        res = x
+        h = rmsnorm(p["norm"], x, cfg.norm_eps)
+        with span("mamba.in_proj"):
+            zxbcdt = linear(p["in_proj"], h)
+        z, xbc, dt_raw = _split_in_proj(cfg, zxbcdt)
+        # causal depthwise conv1d (width W) over the (x, B, C) channels; in
+        # x's dtype, then + conv_b (f32) promotes to f32 as in JAX
+        W, L = cfg.ssm_conv_width, xbc.shape[1]
+        pad = F.pad(xbc, (0, 0, W - 1, 0))
+        conv = sum(pad[:, i : i + L, :] * p["conv_w"][i] for i in range(W))
+        xbc = F.silu((conv + p["conv_b"]).float()).to(x.dtype)
+        xh, log_a, Bm, Cm, dt = _ssm_from_xbc(cfg, p, xbc, dt_raw)
+        y = ssd_scan(xh, log_a, Bm, Cm, dt, cfg.ssm_chunk)
+        y = y + p["D"][None, None, :, None] * xh.float()
+        y = y.reshape(x.shape[0], x.shape[1], cfg.d_inner)
+        y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
+        y = rmsnorm(p["out_norm"], y, cfg.norm_eps)
+        with span("mamba.out_proj"):
+            out = linear(p["out_proj"], y)
+        return res + out
 
 
 # -------------------------------------------------------------- decode ------

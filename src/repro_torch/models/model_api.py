@@ -40,6 +40,7 @@ from repro_torch.launch.mesh import PartitionSpec as P
 from repro_torch.models import hybrid, mamba2, moe, transformer, vlm, whisper
 from repro_torch.models.common import dtype_of
 from repro_torch.models.config import ModelConfig
+from repro_torch.spans import span
 
 Params = Dict[str, Any]
 
@@ -81,21 +82,22 @@ class Model:
         encoder for encdec, after ``batch["patch_embeds"]`` for vlm) ->
         last-position logits ``[B, vocab]`` (f32).  Attention runs through
         ``flash_attention``, every Mamba block's SSD scan through
-        ``kernels.ssd_scan.ops.ssd_scan``."""
-        cfg, fam, tokens = self.cfg, self.cfg.family, batch["tokens"]
-        if fam == "dense":
-            return transformer.dense_prefill(cfg, params, tokens)
-        if fam == "vlm":
-            return vlm.vlm_prefill(cfg, params, tokens, batch.get("patch_embeds"))
-        if fam == "moe":
-            return moe.moe_prefill(cfg, params, tokens)
-        if fam == "ssm":
-            return mamba2.ssm_prefill(cfg, params, tokens)
-        if fam == "hybrid":
-            return hybrid.hybrid_prefill(cfg, params, tokens)
-        if fam == "encdec":
-            return whisper.encdec_prefill(cfg, params, batch["frames"], tokens)
-        raise ValueError(fam)
+        ``kernels.ssd_scan.ops.ssd_scan``; span ``model.prefill``."""
+        with span("model.prefill"):
+            cfg, fam, tokens = self.cfg, self.cfg.family, batch["tokens"]
+            if fam == "dense":
+                return transformer.dense_prefill(cfg, params, tokens)
+            if fam == "vlm":
+                return vlm.vlm_prefill(cfg, params, tokens, batch.get("patch_embeds"))
+            if fam == "moe":
+                return moe.moe_prefill(cfg, params, tokens)
+            if fam == "ssm":
+                return mamba2.ssm_prefill(cfg, params, tokens)
+            if fam == "hybrid":
+                return hybrid.hybrid_prefill(cfg, params, tokens)
+            if fam == "encdec":
+                return whisper.encdec_prefill(cfg, params, batch["frames"], tokens)
+            raise ValueError(fam)
 
     # ---- meta stand-ins (no allocation) -------------------------------------
     def input_specs(self, shape_name: Union[str, ShapeSpec]) -> Dict[str, Any]:

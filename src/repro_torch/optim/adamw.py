@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.launch.mesh import PartitionSpec as P
+from repro_torch.spans import span
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Any
@@ -111,35 +112,39 @@ def adamw_update(
     cfg: OptConfig, params: Params, grads: Params, state: OptState
 ) -> Tuple[Params, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step: ``params`` and ``state``'s moments updated in place
-    and returned, with ``{"lr", "grad_norm"}`` (device scalars)."""
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    step = state.step + 1
-    lr = lr_at(cfg, state.step)
-    bc1 = 1 - cfg.b1 ** step.float()
-    bc2 = 1 - cfg.b2 ** step.float()
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.m),
-                          tree_leaves(state.v)):
-        g = g.float() * scale
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)  # b1 m + (1 - b1) g
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        mh, vh = m / bc1, v / bc2
-        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+    and returned, with ``{"lr", "grad_norm"}`` (device scalars); span
+    ``adamw.update``."""
+    with span("adamw.update"):
+        gnorm = global_norm(grads)
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+        step = state.step + 1
+        lr = lr_at(cfg, state.step)
+        bc1 = 1 - cfg.b1 ** step.float()
+        bc2 = 1 - cfg.b2 ** step.float()
+        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.m),
+                              tree_leaves(state.v)):
+            g = g.float() * scale
+            m.mul_(cfg.b1).add_((1 - cfg.b1) * g)  # b1 m + (1 - b1) g
+            v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+            mh, vh = m / bc1, v / bc2
+            delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
+            p.copy_((p.float() - lr * delta).to(p.dtype))
     return params, OptState(step, state.m, state.v), {"lr": lr, "grad_norm": gnorm}
 
 
 def make_train_step(loss_fn: Callable, opt_cfg: OptConfig):
     """(params, opt_state, batch) -> (params, opt_state, metrics): the
-    loss and ``torch.autograd.grad`` of it with respect to every parameter
-    (each made to require grad), then :func:`adamw_update`; ``metrics``
-    holds ``loss``, ``lr`` and ``grad_norm`` as device scalars."""
+    loss (in the span ``model.loss``) and ``torch.autograd.grad`` of it
+    with respect to every parameter (each made to require grad), then
+    :func:`adamw_update`; ``metrics`` holds ``loss``, ``lr`` and
+    ``grad_norm`` as device scalars."""
 
     def train_step(params, opt_state, batch):
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        loss = loss_fn(params, batch)
+        with span("model.loss"):
+            loss = loss_fn(params, batch)
         it = iter(torch.autograd.grad(loss, leaves))
         grads = tree_map(lambda _: next(it), params)
         params, opt_state, metrics = adamw_update(opt_cfg, params, grads, opt_state)

@@ -1,0 +1,40 @@
+"""Named spans at the program's layer boundaries, for a profiler to read.
+
+``span(name)`` is ``torch.profiler.record_function(name)`` while a
+profiler records (``torch.autograd._profiler_enabled()``; autograd's
+backward threads inherit the recording thread's state, so a span in a
+``Function.backward`` is recorded too), and one shared
+``contextlib.nullcontext()`` otherwise.  With no profiler a span costs
+that flag check, about a microsecond, where an idle ``record_function``
+costs ten.  Nothing turns the spans on but a running profiler.
+
+The spans and where they sit:
+
+=====================  ==================================================
+``model.prefill``      ``models.model_api.Model.prefill``, any family
+``model.loss``         ``optim.adamw.make_train_step``: the forward
+``mamba.block``        ``models.mamba2.mamba_block_apply`` (and remat's
+                       recompute of it)
+``mamba.in_proj``,     the block's two projections
+``mamba.out_proj``
+``ssd_scan``           ``kernels.ssd_scan.ops.ssd_scan``, whatever route
+                       computes the scan
+``ssd_scan.backward``  ``kernels.ssd_scan.ops.SSDScan.backward``
+``adamw.update``       ``optim.adamw.adamw_update``
+=====================  ==================================================
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function(name)`` while a profiler records, else a shared no-op."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
