@@ -10,10 +10,10 @@ repository beside it, it exits non-zero before printing any result.
 Phases, each on lines of its own; any failure exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit, and the torch device;
-2. build: the s2d-conv, decode-attention and SSD-scan kernels compiled
-   from ``csrc/s2d_conv.cu``, ``csrc/decode_attn.cu`` and
-   ``csrc/ssd_scan.cu``, one ``nvcc`` each, started together (seconds of
-   each);
+2. build: the s2d-conv, decode-attention, SSD-scan and Mamba-pass
+   kernels compiled from ``csrc/s2d_conv.cu``, ``csrc/decode_attn.cu``,
+   ``csrc/ssd_scan.cu`` and ``csrc/mamba_passes.cu``, one ``nvcc`` each,
+   started together (seconds of each);
 3. kernel: each kernel against its plain version on the card.
    s2d-conv (``ref.s2d_conv_ref``): at the ``tests/test_kernels.py``
    shapes and at every pointwise variant layer the ``multicam_heavy`` @
@@ -105,8 +105,9 @@ Phases, each on lines of its own; any failure exits non-zero:
    tied embeddings) and ``model.prefill(params, {"tokens": ...})`` on B=8
    prompts of L=4096 tokens drawn from a numpy seed (``prefill_32k``,
    B=32 L=32768, cut to B=8 L=4096).  The SSD kernel must run exactly 48
-   times.  The same prefill is replayed with ``ssd_scan`` swapped for the
-   plain ``ssd_chunked``, and once more with a planted fault (the kernel
+   times, and so must the Mamba passes' kernels (``mamba_passes_cuda``,
+   one count a block call: grad is off).  The same prefill is replayed
+   with ``ssd_scan`` swapped for the plain ``ssd_chunked``, and once more with a planted fault (the kernel
    with the state dropped at every chunk boundary, so no inter-chunk
    C S term); the last-position logits of each are read against the
    plain replay.  In bf16 that is a reading, not a check: the two sound
@@ -120,6 +121,16 @@ Phases, each on lines of its own; any failure exits non-zero:
    timed prefill (ms, prompt tokens/s, peak memory) and one under
    ``torch.profiler`` (the device's busy share, the kernel's share of
    device time);
+   (iii.b) the Mamba block's pass kernels (``mamba_passes_row``) at the
+   prefill cell's shape (mamba2-1.3b, B=64, L=4096) and at zamba2-2.7b's
+   (B=8, L=4096), bf16: each of the three kernels and the residual add
+   timed (CUDA events) beside its byte floor (``kernel.floor_bytes`` at
+   3.35 TB/s), the plain passes (``ref.mamba_passes`` with the scan's
+   output given, less its two projections) and ``F.rms_norm`` as the
+   norm's yardstick; each kernel held to the plain pass on the plain
+   block's own inputs within 4 bf16 ulps of max|ref| (dt and log_a, f32,
+   within 2e-6); a block call through ``ops.mamba_passes`` with grad off
+   counts one, and one under autograd none;
    (iv) ssm decode: ``serve.decode`` of the same model, B=8, 256 greedy
    tokens: no SSD or decode-attention launch (the recurrent step uses
    no kernel); ms/token, tokens/s, and under ``torch.profiler`` over 64
@@ -297,6 +308,7 @@ All rows also go to ``chiprun_out/chip_smoke.json``.
 import dataclasses
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1165,12 +1177,15 @@ def _say_where(label, line):
 
 
 def _kernels():
-    """The launch-counted wrappers of the three kernels."""
+    """The launch-counted wrappers of the port's kernels (the Mamba passes'
+    count block calls, three launches each)."""
     from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.mamba_passes.kernel import mamba_passes_cuda
     from repro_torch.kernels.s2d_conv.kernel import s2d_conv_cuda
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
 
-    return dict(s2d_conv=s2d_conv_cuda, decode_attn=decode_attn_cuda, ssd_scan=ssd_scan_cuda)
+    return dict(s2d_conv=s2d_conv_cuda, decode_attn=decode_attn_cuda, ssd_scan=ssd_scan_cuda,
+                mamba_passes=mamba_passes_cuda)
 
 
 def _zero_counts(torch):
@@ -1227,6 +1242,110 @@ def _cross_path(torch, m, p, prompt, seed, extra=None, cache=None):
     c_max, c_rms, _ = logits_gap(step, pre)
     excess = ((step - pre).abs() - CROSS_TOL["rtol"] * pre.abs()).max().item()
     return c_max, c_rms, excess, dec.launches - before
+
+
+# (iii.b) the Mamba block's pass kernels: (arch, B, L) of the prefill cell and
+# zamba2-2.7b's prefill, bf16, one block at the published widths (seed 0)
+PASS_CELLS = [("mamba2-1.3b", 64, 4096), ("zamba2-2.7b", 8, 4096)]
+PASS_ULPS = 4  # each kernel vs the plain pass on its inputs: tests/test_torch_cuda.py's limit
+
+
+def _bf16_ulps(got, want):
+    """max|got - want| in bf16 ulps of max|want|: 2^(e - 7), e its binade."""
+    m = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() / 2.0 ** (math.floor(math.log2(m)) - 7)
+
+
+def mamba_passes_row(torch, report):
+    """Phase (iii.b): the Mamba pass kernels at ``PASS_CELLS``: each held
+    to the plain pass on the plain block's own intermediates, timed beside
+    its byte floor, the plain passes and ``F.rms_norm``; the router's
+    counter read with grad off and under autograd."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_passes import kernel as mp
+    from repro_torch.kernels.mamba_passes import ops, ref
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.models.common import linear
+    from repro_torch.models.mamba2 import init_mamba_block
+    from repro_torch.tree import tree_map
+
+    rows = report["mamba_passes"] = []
+    for arch, B, L in PASS_CELLS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=1)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        p = init_mamba_block(gen, cfg, torch.bfloat16)
+        x = torch.randn((B, L, cfg.d_model), generator=gen, device="cuda").bfloat16()
+        H, Pd, eps = cfg.ssm_nheads, cfg.ssm_headdim, cfg.norm_eps
+        seen, conv = [], []
+
+        def spy(w, t):
+            o = linear(w, t)
+            seen.append((t, o))
+            return o
+
+        def scan(xh, la, Bm, Cm, dt, chunk):
+            y = ssd_scan(xh, la, Bm, Cm, dt, chunk)
+            conv.extend([xh.reshape(B, L, -1).contiguous(), Bm, Cm, dt, la, y])
+            return y
+
+        with torch.no_grad():
+            _with_patch(ref, "linear", spy, lambda: ref.mamba_passes(cfg, p, x, scan))
+            (h, zx), (g, _) = seen
+            y = conv[5]
+            conv_args = (p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"], cfg.d_inner,
+                         cfg.ssm_state, H)
+            gate_args = (p["D"], p["out_norm"]["scale"], eps, Pd)
+            got_conv = mp.conv_silu_cuda(zx, *conv_args)
+            ulps = dict(norm=_bf16_ulps(mp.rmsnorm_cuda(x, p["norm"]["scale"], eps), h),
+                        conv=max(_bf16_ulps(a, b) for a, b in zip(got_conv[:3], conv[:3])),
+                        gate_norm=_bf16_ulps(mp.gate_norm_cuda(y, conv[0], zx, *gate_args), g))
+            f32_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                          for a, b in zip(got_conv[3:], conv[3:5]))
+            del got_conv
+            calls = dict(
+                norm=lambda: mp.rmsnorm_cuda(x, p["norm"]["scale"], eps),
+                conv=lambda: mp.conv_silu_cuda(zx, *conv_args),
+                gate_norm=lambda: mp.gate_norm_cuda(y, conv[0], zx, *gate_args),
+                add=lambda: x + h,  # the residual add: two reads and a write of [B, L, d_model]
+            )
+            ms = {k: event_ms(torch, fn, reps=10, warm=2) for k, fn in calls.items()}
+            proj_ms = (event_ms(torch, lambda: linear(p["in_proj"], h), reps=5)
+                       + event_ms(torch, lambda: linear(p["out_proj"], g), reps=5))
+            plain_ms = event_ms(torch, lambda: ref.mamba_passes(cfg, p, x, lambda *a: y)) - proj_ms
+            library_ms = event_ms(torch, lambda: F.rms_norm(
+                x, (cfg.d_model,), p["norm"]["scale"].bfloat16(), eps), reps=10, warm=2)
+            before = mp.mamba_passes_cuda.launches
+            ops.mamba_passes(cfg, p, x, ssd_scan)
+            launched = mp.mamba_passes_cuda.launches - before
+        del seen, conv, h, zx, g, y
+        pg = tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
+        before = mp.mamba_passes_cuda.launches
+        ops.mamba_passes(cfg, pg, x[:1, :cfg.ssm_chunk], ssd_scan)
+        under_grad = mp.mamba_passes_cuda.launches - before
+        floor = {k: v / HBM_BPS * 1e3 for k, v in mp.floor_bytes(cfg, B * L, 2).items()}
+        row = dict(arch=arch, B=B, L=L, dtype="bfloat16", max_ulps=max(ulps.values()),
+                   ulps=ulps, f32_max_rel=f32_rel, launches=launched, launches_under_grad=under_grad,
+                   **{f"{k}_ms": v for k, v in ms.items()},
+                   **{f"{k}_bound_ms": v for k, v in floor.items()},
+                   passes_ms=sum(ms.values()), bound_ms=sum(floor.values()),
+                   plain_ms=plain_ms, library_norm_ms=library_ms)
+        rows.append(row)
+        say("[passes] {arch} B={B} L={L} bf16: ".format(**row) + ", ".join(
+            f"{k} {ms[k]:.4f} ms (floor {floor[k]:.4f}, {floor[k] / ms[k]:.1%})" for k in ms)
+            + "; passes {passes_ms:.4f} ms against a floor of {bound_ms:.4f} ms and the plain "
+            "passes' {plain_ms:.4f} ms; F.rms_norm {library_norm_ms:.4f} ms; max ulps vs plain "
+            "{ulps}, dt/log_a max rel {f32_max_rel:.2e}; block calls counted {launches} (grad "
+            "off), {launches_under_grad} (under autograd)".format(**row))
+        if row["max_ulps"] > PASS_ULPS or not f32_rel <= 2e-6:
+            fail(f"a Mamba pass kernel at {arch} B={B} L={L} is {ulps} bf16 ulps from the plain "
+                 f"pass (limit {PASS_ULPS}), dt/log_a {f32_rel:.2e} (limit 2e-6)")
+        if (launched, under_grad) != (1, 0):
+            fail(f"mamba_passes_cuda counted {launched} block calls with grad off and "
+                 f"{under_grad} under autograd, not 1 and 0")
+        del p, pg, x
+        torch.cuda.empty_cache()
 
 
 def dense_prefill(torch, report):
@@ -1334,8 +1453,9 @@ def hybrid(torch, report):
     first_wall = time.perf_counter() - t0
     c = _counts()
     say(f"[hybrid] counts read after the zamba2 prefill path: {c}")
-    if c != dict(s2d_conv=0, decode_attn=0, ssd_scan=cfg.n_layers):
-        fail(f"the zamba2 prefill path launched {c}, not ssd_scan x {cfg.n_layers} alone")
+    if c != dict(s2d_conv=0, decode_attn=0, ssd_scan=cfg.n_layers, mamba_passes=cfg.n_layers):
+        fail(f"the zamba2 prefill path launched {c}, not ssd_scan and mamba_passes x "
+             f"{cfg.n_layers} alone")
     if tuple(logits.shape) != (Bp, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         fail(f"zamba2 prefill returned {tuple(logits.shape)} logits, or non-finite ones")
     # bf16: read against the plain-ssd_chunked replay, not held (as in phase (iii))
@@ -1385,7 +1505,7 @@ def hybrid(torch, report):
     model.decode_step = decode_step
     c = _counts()
     say(f"[hybrid] counts read after the zamba2 decode path: {c}")
-    if c != dict(s2d_conv=0, decode_attn=sites * n_tok, ssd_scan=0):
+    if c != dict(s2d_conv=0, decode_attn=sites * n_tok, ssd_scan=0, mamba_passes=0):
         fail(f"the zamba2 decode path launched {c}, not decode_attn x {sites} x {n_tok} alone")
     if tuple(seq.shape) != (batch, n_tok) or len(kept) != n_tok:
         fail(f"zamba2 serve returned {tuple(seq.shape)} ids and {len(kept)} logits")
@@ -1610,7 +1730,7 @@ def _serve_held(torch, model, params, cache, first, start, n_tok, ctx, mods, sit
     model.decode_step = decode_step
     c = _counts()
     say(f"[{tag}] counts read after the {model.cfg.name} decode path: {c}")
-    if c != dict(s2d_conv=0, decode_attn=sites * n_tok, ssd_scan=0):
+    if c != dict(s2d_conv=0, decode_attn=sites * n_tok, ssd_scan=0, mamba_passes=0):
         fail(f"the {model.cfg.name} decode path launched {c}, not decode_attn x {sites} x "
              f"{n_tok} alone")
     if tuple(seq.shape) != (batch, n_tok) or len(kept) != n_tok:
@@ -2016,7 +2136,7 @@ def _train_cell(torch, report, cell):
     forward_plain = plain["calls"] - plain["backward"]
     say(f"[{tag}] counts read after the {arch} training path: {c}; plain ssd_chunked in a "
         f"forward: {forward_plain}, in the SSD backward: {plain['backward']}")
-    if c != dict(s2d_conv=0, decode_attn=0, ssd_scan=cell["ssd_calls"] * steps):
+    if c != dict(s2d_conv=0, decode_attn=0, ssd_scan=cell["ssd_calls"] * steps, mamba_passes=0):
         fail(f"the {arch} training path launched {c}, not ssd_scan x {cell['ssd_calls']} x "
              f"{steps} alone")
     if forward_plain:
@@ -2444,7 +2564,7 @@ def decode_floor_c(torch, report, model, params):
     wall_ms = (time.perf_counter() - t0) * 1e3
     c = _counts()
     say(f"[floor] counts read after the (c) chunk: {c}")
-    if c != dict(s2d_conv=0, decode_attn=cfg.n_layers * n, ssd_scan=0):
+    if c != dict(s2d_conv=0, decode_attn=cfg.n_layers * n, ssd_scan=0, mamba_passes=0):
         fail(f"the (c) decode chunk launched {c}, not decode_attn x {cfg.n_layers} x {n} alone")
     if tuple(seq.shape) != (B, n) or not bool(((seq >= 0) & (seq < cfg.vocab_size)).all()):
         fail(f"the (c) decode chunk returned {tuple(seq.shape)} ids, or ids outside the vocabulary")
@@ -2617,6 +2737,7 @@ def main():
     from repro_torch.kernels.decode_attn import kernel as dec_kernel
     from repro_torch.kernels.decode_attn.ops import gqa_decode_attention
     from repro_torch.kernels.decode_attn.ref import decode_attention
+    from repro_torch.kernels.mamba_passes import kernel as mp_kernel
     from repro_torch.kernels.s2d_conv import kernel as s2d_kernel
     from repro_torch.kernels.s2d_conv.ref import s2d_conv_ref
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -2654,7 +2775,8 @@ def main():
         lib = mod.build(verbose=True)
         return lib, time.perf_counter() - t0
 
-    kernel_mods = {"s2d_conv": s2d_kernel, "decode_attn": dec_kernel, "ssd_scan": ssd_kernel}
+    kernel_mods = {"s2d_conv": s2d_kernel, "decode_attn": dec_kernel, "ssd_scan": ssd_kernel,
+                   "mamba_passes": mp_kernel}
     with ThreadPoolExecutor(len(kernel_mods)) as pool:
         futures = {name: pool.submit(timed_build, mod) for name, mod in kernel_mods.items()}
         built = {name: f.result() for name, f in futures.items()}
@@ -3213,6 +3335,11 @@ def main():
         f"s2d_conv launches = {s2d_kernel.s2d_conv_cuda.launches}")
     if ssd_launches != cfg.n_layers:
         fail(f"the prefill path launched the SSD kernel {ssd_launches} times, not {cfg.n_layers}")
+    pass_calls = mp_kernel.mamba_passes_cuda.launches
+    say(f"[prefill] mamba_passes block calls = {pass_calls}")
+    if pass_calls != cfg.n_layers:
+        fail(f"the prefill path ran the Mamba pass kernels in {pass_calls} block calls, not "
+             f"{cfg.n_layers}")
 
     # checks (after the counts were read): shape, finite, then the same prefill
     # with the plain ssd_chunked in place of the kernel
@@ -3295,6 +3422,8 @@ def main():
             "(torch.profiler recorded no device activity)")
 
     phase_done("phase (iii)")
+    mamba_passes_row(torch, report)
+    phase_done("phase (iii.b)")
 
     # (iv) ssm decode: the O(1) recurrent step, which launches no kernel
     n_tok = SSM["tokens"]
@@ -3303,11 +3432,13 @@ def main():
     seq = serve.decode(model, params, tokens=n_tok, batch=Bp, ctx=n_tok)
     torch.cuda.synchronize()
     ssm_wall = time.perf_counter() - t0
-    counts = (ssd_kernel.ssd_scan_cuda.launches, dec_kernel.decode_attn_cuda.launches)
+    counts = (ssd_kernel.ssd_scan_cuda.launches, dec_kernel.decode_attn_cuda.launches,
+              mp_kernel.mamba_passes_cuda.launches)
     say(f"[decode] counts read after the ssm decode path: ssd_scan launches = {counts[0]}, "
-        f"decode_attn launches = {counts[1]}")
-    if counts != (0, 0):
-        fail(f"the ssm decode path launched kernels: ssd_scan, decode_attn = {counts}")
+        f"decode_attn launches = {counts[1]}, mamba_passes block calls = {counts[2]}")
+    if counts != (0, 0, 0):
+        fail(f"the ssm decode path launched kernels: ssd_scan, decode_attn, mamba_passes = "
+             f"{counts}")
     if tuple(seq.shape) != (Bp, n_tok) or not bool(((seq >= 0) & (seq < cfg.vocab_size)).all()):
         fail(f"ssm decode returned {tuple(seq.shape)} ids, or ids outside the vocabulary")
     n_prof = SSM["profile_tokens"]
@@ -3435,7 +3566,15 @@ def main():
         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=None,
     )
-    report["kernels"] = [entry, dec_entry, ssd_entry]
+    # the Mamba passes at the prefill cell's shape: the three kernels, no TPU kernel
+    (main,) = [r for r in report["mamba_passes"] if r["arch"] == SSM["arch"]]
+    passes_entry = dict(
+        name="mamba_passes", route="cuda", source="src/repro_torch/csrc/mamba_passes.cu",
+        replaces=None, launches=pass_calls, max_ulps=main["max_ulps"],
+        ms=main["passes_ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by="bytes", library_ms=main["library_norm_ms"],
+    )
+    report["kernels"] = [entry, dec_entry, ssd_entry, passes_entry]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -84,7 +84,8 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor, C: torch.Ten
 
         with span("ssd_scan"):
             return ssd_chunked(x, log_a, B, C, dt, chunk)
-    # the model hands in views of its (x, B, C) projection
+    # the plain passes hand in views of their (x, B, C) projection; the fused
+    # passes contiguous tensors, which copy nothing here
     args = tuple(t.contiguous() for t in (x, log_a, B, C, dt))
     with span("ssd_scan"):
         if torch.is_grad_enabled() and any(t.requires_grad for t in args):

@@ -14,7 +14,10 @@ prefill and training forward (:func:`mamba_block_apply`) call
 hand-written kernel (under autograd, with the plain version's gradient)
 and a CPU tensor to ``ssd_chunked``: the same function.  (The JAX model
 calls ``ssd_chunked`` directly although its ops docstring says the models
-call through the switch; the port does what that docstring says.)
+call through the switch; the port does what that docstring says.)  The
+block's other passes (norms, causal conv, silu, gating) go through
+``kernels.mamba_passes.ops``: the plain ones on the CPU, on ``meta`` and
+under autograd, three hand-written kernels on a CUDA tensor with grad off.
 
 Decode is the O(1)-per-token recurrent update on a carried (conv window,
 SSM state) cache; it launches no kernel.  Layers stay stacked along a
@@ -34,6 +37,8 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.mamba_passes.ops import mamba_passes
+from repro_torch.kernels.mamba_passes.ref import split_in_proj, ssm_from_xbc
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.common import (
     chunked_softmax_xent,
@@ -161,50 +166,15 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype)
     }
 
 
-def _split_in_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
-    Din, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
-    z, xbc, dt = torch.split(zxbcdt, [Din, Din + 2 * N, H], dim=-1)
-    return z, xbc, dt  # xbc = conv input (x, B, C); dt: [.., H]
-
-
-def _ssm_from_xbc(cfg: ModelConfig, p: Params, xbc: torch.Tensor, dt_raw: torch.Tensor):
-    Din, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
-    x, Bm, Cm = torch.split(xbc, [Din, N, N], dim=-1)
-    Bsz, L = x.shape[0], x.shape[1]
-    xh = x.reshape(Bsz, L, H, Pd)
-    # jax.nn.softplus is logaddexp(x, 0); F.softplus returns x above 20,
-    # where the two differ by less than x's f32 rounding
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])  # [B,L,H]
-    A = -torch.exp(p["A_log"])  # [H]
-    log_a = dt * A  # [B,L,H]
-    return xh, log_a, Bm, Cm, dt
-
-
 def mamba_block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """One block over a whole sequence, x: [B, L, D] -> [B, L, D].  Spans
     ``mamba.block`` around it, ``mamba.in_proj`` and ``mamba.out_proj``
-    around its projections; the scan's own is ``ssd_scan``'s."""
+    around its projections; the scan's own is ``ssd_scan``'s.  Its passes
+    are ``kernels.mamba_passes.ops``'s: the plain ones (the CPU, ``meta``,
+    and training under autograd) or the fused kernels (a CUDA tensor with
+    grad off), around :func:`ssd_scan`."""
     with span("mamba.block"):
-        res = x
-        h = rmsnorm(p["norm"], x, cfg.norm_eps)
-        with span("mamba.in_proj"):
-            zxbcdt = linear(p["in_proj"], h)
-        z, xbc, dt_raw = _split_in_proj(cfg, zxbcdt)
-        # causal depthwise conv1d (width W) over the (x, B, C) channels; in
-        # x's dtype, then + conv_b (f32) promotes to f32 as in JAX
-        W, L = cfg.ssm_conv_width, xbc.shape[1]
-        pad = F.pad(xbc, (0, 0, W - 1, 0))
-        conv = sum(pad[:, i : i + L, :] * p["conv_w"][i] for i in range(W))
-        xbc = F.silu((conv + p["conv_b"]).float()).to(x.dtype)
-        xh, log_a, Bm, Cm, dt = _ssm_from_xbc(cfg, p, xbc, dt_raw)
-        y = ssd_scan(xh, log_a, Bm, Cm, dt, cfg.ssm_chunk)
-        y = y + p["D"][None, None, :, None] * xh.float()
-        y = y.reshape(x.shape[0], x.shape[1], cfg.d_inner)
-        y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-        y = rmsnorm(p["out_norm"], y, cfg.norm_eps)
-        with span("mamba.out_proj"):
-            out = linear(p["out_proj"], y)
-        return res + out
+        return mamba_passes(cfg, p, x, ssd_scan)
 
 
 # -------------------------------------------------------------- decode ------
@@ -226,12 +196,12 @@ def mamba_block_decode(cfg: ModelConfig, p: Params, x1: torch.Tensor,
     the new ``{"conv", "ssm"}`` state (new tensors, as in JAX)."""
     res = x1
     h = rmsnorm(p["norm"], x1, cfg.norm_eps)
-    z, xbc, dt_raw = _split_in_proj(cfg, linear(p["in_proj"], h))
+    z, xbc, dt_raw = split_in_proj(cfg, linear(p["in_proj"], h))
     window = torch.cat([state["conv"], xbc], dim=1)  # [B, W, ch]
     conv = torch.einsum("bwc,wc->bc", window, p["conv_w"])[:, None, :]
     new_conv_state = window[:, 1:, :]
     xbc = F.silu((conv + p["conv_b"]).float()).to(x1.dtype)
-    xh, log_a, Bm, Cm, dt = _ssm_from_xbc(cfg, p, xbc, dt_raw)
+    xh, log_a, Bm, Cm, dt = ssm_from_xbc(cfg, p, xbc, dt_raw)
     # single-step state update
     a = torch.exp(log_a[:, 0])[..., None, None]  # [B,H,1,1]
     upd = torch.einsum("bn,bhp,bh->bhnp", Bm[:, 0].float(), xh[:, 0].float(), dt[:, 0])

@@ -36,6 +36,18 @@ runs on a machine that has only torch:
   reduced mamba2 prefill through the kernel, one call per layer; under
   grad, the kernel inside ``ops.SSDScan`` with the plain version's
   gradient, and a reduced mamba2 train step equal to the CPU's;
+* the Mamba block's pass kernels (``csrc/mamba_passes.cu``) against the
+  plain passes they replace, each kernel fed the plain passes' own inputs, in
+  bf16 at mamba2-1.3b's and zamba2-2.7b's block widths, B in {1, 3} and L in
+  {1, 3, 257, 4096}, within 4 bf16 ulps of max|ref| (the plain conv rounds
+  each product and partial sum to bf16; the kernel sums in f32), dt and
+  log_a in f32 to 2e-6 (the same f32 operations), and in f32 to 1e-5 of
+  max|ref| (another summation order); against the block's f32 twin, the
+  kernels' route no further than the plain route; a conv window shifted by a
+  token read outside the limit; the wrappers' rejections; a reduced mamba2
+  prefill on the fused route equal to the plain route's, with
+  ``mamba_passes_cuda.launches`` up by n_layers a prefill and not at all in
+  a training step;
 * a reduced zamba2 (heads of 80) prefilling and decoding on the card
   through both kernels, equal to the CPU, and raising where the decode
   kernel refuses its head shape (no fallback); a reduced whisper, llava,
@@ -711,6 +723,280 @@ def _to_card(tree, card):
     if isinstance(tree, dict):
         return {k: _to_card(v, card) for k, v in tree.items()}
     return tree.detach().to(card)
+
+
+# ------------------------------------------------ the Mamba block's passes ---
+
+PASS_ARCHS = ("mamba2-1.3b", "zamba2-2.7b")
+PASS_ULPS = 4  # kernels vs the plain passes in bf16: ulps of max|ref|
+
+
+def _pass_block(card, arch, B, L, dtype=torch.bfloat16, seed=0):
+    """One Mamba block of ``arch`` at its published widths on the card, with
+    random conv bias, D, dt_bias and norm scales (so every term shows), an
+    input x [B, L, d_model] and a stand-in y [B, L, H, P] for the scan's
+    output, all drawn from ``seed``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.mamba2 import init_mamba_block
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=1, dtype=str(dtype).split(".")[-1])
+    gen = torch.Generator(device=card).manual_seed(seed)
+    p = init_mamba_block(gen, cfg, dtype)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=card)
+
+    p["conv_b"], p["D"], p["dt_bias"] = (draw(p[k].shape) for k in ("conv_b", "D", "dt_bias"))
+    for k in ("norm", "out_norm"):
+        p[k] = {"scale": 1 + 0.1 * draw(p[k]["scale"].shape)}
+    x = draw((B, L, cfg.d_model)).to(dtype)
+    y = draw((B, L, cfg.ssm_nheads, cfg.ssm_headdim)).to(dtype)
+    return cfg, p, x, y
+
+
+def _spied_linear(m, module, seen, first=None):
+    """``module.linear`` recording each call's input and output in ``seen``;
+    the first call (the input projection) returns ``first`` where given."""
+    from repro_torch.models.common import linear
+
+    def lin(w, h):
+        out = linear(w, h) if first is None or seen else first
+        seen.append((h, out))
+        return out
+
+    m.setattr(module, "linear", lin)
+
+
+def _plain_io(monkeypatch, cfg, p, x, y, zxbcdt=None):
+    """The plain passes (``ref.mamba_passes``) on ``x``, the scan's output
+    taken as ``y`` (and the input projection's as ``zxbcdt`` where given):
+    the norm's output h, the input projection zxbcdt, the conv's outputs
+    (x [B, L, d_inner] contiguous, B, C, dt, log_a) and the gate norm's
+    output g, the input of the output projection."""
+    from repro_torch.kernels.mamba_passes import ref
+
+    seen, conv = [], []
+
+    def scan(xh, log_a, B, C, dt, chunk):
+        conv.extend([xh.reshape(*xh.shape[:2], -1).contiguous(), B, C, dt, log_a])
+        return y
+
+    with monkeypatch.context() as m, torch.no_grad():
+        _spied_linear(m, ref, seen, zxbcdt)
+        ref.mamba_passes(cfg, p, x, scan)
+    (h, z), (g, _) = seen
+    return dict(h=h, zxbcdt=z, conv=conv, g=g)
+
+
+def _fused_g(monkeypatch, cfg, p, x, y, zxbcdt):
+    """The out_proj input of the kernels' route (``mamba_passes_cuda``) on
+    ``x``, the input projection's output taken as ``zxbcdt`` and the scan's
+    as ``y``."""
+    from repro_torch.kernels.mamba_passes import kernel
+
+    seen = []
+    with monkeypatch.context() as m, torch.no_grad():
+        _spied_linear(m, kernel, seen, zxbcdt)
+        kernel.mamba_passes_cuda(cfg, p, x, lambda *a: y)
+    return seen[1][0]
+
+
+def _ulps(got, want):
+    """max|got - want| in bf16 ulps of max|want|: 2^(e - 7), e its binade."""
+    import math
+
+    m = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() / 2.0 ** (math.floor(math.log2(m)) - 7)
+
+
+def _fused_outputs(cfg, p, x, y, plain):
+    """Each kernel on the plain passes' own inputs."""
+    from repro_torch.kernels.mamba_passes.kernel import (
+        conv_silu_cuda, gate_norm_cuda, rmsnorm_cuda,
+    )
+
+    h = rmsnorm_cuda(x, p["norm"]["scale"], cfg.norm_eps)
+    conv = conv_silu_cuda(plain["zxbcdt"], p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"],
+                          cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads)
+    g = gate_norm_cuda(y, plain["conv"][0], plain["zxbcdt"], p["D"], p["out_norm"]["scale"],
+                       cfg.norm_eps, cfg.ssm_headdim)
+    return dict(h=h, conv=list(conv), g=g)
+
+
+@pytest.mark.parametrize("L", [1, 3, 257, 4096])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("arch", PASS_ARCHS)
+def test_mamba_pass_kernels_match_the_plain_passes(card, monkeypatch, arch, B, L):
+    """bf16: h, x, B, C and g within PASS_ULPS of the plain passes' (the norms
+    differ by summation order, the conv by the plain path's bf16 rounding of
+    its products and partial sums); dt and log_a, f32 in both, to 2e-6."""
+    cfg, p, x, y = _pass_block(card, arch, B, L)
+    plain = _plain_io(monkeypatch, cfg, p, x, y)
+    got = _fused_outputs(cfg, p, x, y, plain)
+    for name, a, b in [("h", got["h"], plain["h"]), ("g", got["g"], plain["g"])] + [
+            (k, a, b) for k, a, b in zip("xBC", got["conv"], plain["conv"])]:
+        assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape, name
+        assert _ulps(a, b) <= PASS_ULPS, (name, _ulps(a, b))
+    for a, b in zip(got["conv"][3:], plain["conv"][3:]):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=2e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("arch,B,L", [("mamba2-1.3b", 3, 257), ("zamba2-2.7b", 1, 4096)])
+def test_mamba_pass_kernels_in_f32(card, monkeypatch, arch, B, L):
+    """f32 activations: every output within 1e-5 of max|ref| (the same f32
+    arithmetic in another summation order)."""
+    cfg, p, x, y = _pass_block(card, arch, B, L, dtype=torch.float32)
+    plain = _plain_io(monkeypatch, cfg, p, x, y)
+    got = _fused_outputs(cfg, p, x, y, plain)
+    for a, b in [(got["h"], plain["h"]), (got["g"], plain["g"])] + list(
+            zip(got["conv"], plain["conv"])):
+        assert a.dtype == torch.float32 and _rel(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", PASS_ARCHS)
+def test_mamba_pass_kernels_are_no_less_precise_than_the_plain_passes(card, monkeypatch, arch):
+    """Against the f32 twin (the same bf16 weights and input in f32, the same
+    input projection and scan outputs), the kernels' route is no further
+    than the plain bf16 route: the rms of the error of the norm's output and
+    of the out_proj input at most 1% above the plain route's.  The two share
+    every rounding point but the conv's, where the kernel keeps f32."""
+    import dataclasses
+
+    from repro_torch.tree import tree_map
+
+    cfg, p, x, y = _pass_block(card, arch, 2, 512)
+    plain = _plain_io(monkeypatch, cfg, p, x, y)
+    got = _fused_outputs(cfg, p, x, y, plain)
+    g = _fused_g(monkeypatch, cfg, p, x, y, plain["zxbcdt"])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    twin = _plain_io(monkeypatch, cfg32, tree_map(lambda t: t.float(), p), x.float(), y.float(),
+                     plain["zxbcdt"].float())
+
+    def rms(a, b):
+        return (a.float() - b).pow(2).mean().sqrt().item()
+
+    for name, fused, bf16, want in [("h", got["h"], plain["h"], twin["h"]),
+                                    ("g", g, plain["g"], twin["g"])]:
+        assert rms(fused, want) <= 1.01 * rms(bf16, want), (name, rms(fused, want),
+                                                            rms(bf16, want))
+
+
+def test_mamba_pass_limit_reads_a_conv_window_shifted_by_a_token(card, monkeypatch):
+    """The planted fault: the conv kernel on the input projection shifted one
+    token later (its window a token behind) reads far outside PASS_ULPS."""
+    from repro_torch.kernels.mamba_passes.kernel import conv_silu_cuda
+
+    cfg, p, x, y = _pass_block(card, "mamba2-1.3b", 1, 257)
+    plain = _plain_io(monkeypatch, cfg, p, x, y)
+    z = plain["zxbcdt"]
+    shifted = torch.cat([torch.zeros_like(z[:, :1]), z[:, :-1]], dim=1)
+    got = conv_silu_cuda(shifted, p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"],
+                         cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads)
+    assert _ulps(got[0], plain["conv"][0]) > 10 * PASS_ULPS
+
+
+def test_mamba_pass_wrappers_reject_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels.mamba_passes.kernel import (
+        conv_silu_cuda, gate_norm_cuda, mamba_passes_cuda, rmsnorm_cuda,
+    )
+
+    cfg, p, x, y = _pass_block(card, "mamba2-1.3b", 1, 8)
+    Din, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
+    scale, eps = p["norm"]["scale"], cfg.norm_eps
+    z = torch.zeros((1, 8, 2 * Din + 2 * N + H), dtype=torch.bfloat16, device=card)
+    xs = torch.zeros((1, 8, Din), dtype=torch.bfloat16, device=card)
+    conv = (p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"], Din, N, H)
+    gate = (p["D"], p["out_norm"]["scale"], eps, Pd)
+    before = mamba_passes_cuda.launches
+    cases = [
+        ("float32 or bfloat16", lambda: rmsnorm_cuda(x.half(), scale, eps)),
+        ("contiguous", lambda: rmsnorm_cuda(x[..., :1024], scale[:1024], eps)),
+        ("aligned", lambda: rmsnorm_cuda(torch.zeros(cfg.d_model + 1, dtype=torch.bfloat16,
+                                                     device=card)[1:], scale, eps)),
+        ("shape", lambda: rmsnorm_cuda(x, scale[:1024], eps)),
+        ("scale in torch.float32", lambda: rmsnorm_cuda(x, scale.bfloat16(), eps)),
+        ("conv widths", lambda: conv_silu_cuda(z, p["conv_w"][:1], *conv[1:])),
+        ("must be", lambda: conv_silu_cuda(z[..., 8:].contiguous(), *conv)),
+        ("conv_w in", lambda: conv_silu_cuda(z, p["conv_w"].float(), *conv[1:])),
+        ("multiples of 8", lambda: conv_silu_cuda(
+            torch.zeros((1, 8, 2 * Din + 2 * N + 4), dtype=torch.bfloat16, device=card),
+            p["conv_w"], p["conv_b"], p["dt_bias"][:4], p["A_log"][:4], Din, N, 4)),
+        ("shape", lambda: gate_norm_cuda(y[:, :4], xs, z, *gate)),
+        ("not a multiple", lambda: gate_norm_cuda(y, xs, z, p["D"], p["out_norm"]["scale"],
+                                                  eps, 48)),
+        ("D in torch.float32", lambda: gate_norm_cuda(y, xs, z, p["D"].half(),
+                                                      *gate[1:])),
+        ("CUDA device", lambda: gate_norm_cuda(y, xs.cpu(), z, *gate)),
+    ]
+    for match, call in cases:
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert mamba_passes_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_prefill_on_the_fused_route_matches_the_plain_route(card, monkeypatch, dtype):
+    """A reduced mamba2 prefill on the card: the fused route (the default with
+    grad off, ``mamba_passes_cuda.launches`` up by n_layers) against the plain
+    passes on the card (``ops.PLAIN_DEVICES`` widened to ``cuda``, the counter
+    put): f32 at tests/test_model_consistency.py's atol 2e-4, rtol 2e-3; bf16
+    logits within 2e-2 of max|ref| (the conv's bf16 rounding points, through
+    two layers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_passes import ops
+    from repro_torch.kernels.mamba_passes.kernel import mamba_passes_cuda
+    from repro_torch.models.model_api import build_model
+
+    cfg = get_config("mamba2-1.3b").reduced(dtype=dtype)
+    model = build_model(cfg, card)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 4 * cfg.ssm_chunk), dtype=np.int64)).to(card)
+    before = mamba_passes_cuda.launches
+    got = model.prefill(params, {"tokens": toks})
+    assert mamba_passes_cuda.launches == before + cfg.n_layers
+    monkeypatch.setattr(ops, "PLAIN_DEVICES", ("cpu", "meta", "cuda"))
+    want = model.prefill(params, {"tokens": toks})
+    assert mamba_passes_cuda.launches == before + cfg.n_layers
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-3)
+    else:
+        assert _rel(got, want) <= 2e-2
+
+
+def test_mamba_passes_counter_rises_a_prefill_and_stays_in_training(card):
+    """``mamba_passes_cuda.launches``: n_layers a prefill of a reduced mamba2
+    (bf16, remat full), nothing in a training step (loss and every gradient,
+    the forward and the recompute on the plain passes), while the SSD
+    kernel's counter rises by 2 n_layers there."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_passes.kernel import mamba_passes_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.models.model_api import build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("mamba2-1.3b").reduced(dtype="bfloat16"), remat=True,
+                              remat_policy="full")
+    model = build_model(cfg, card)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    tok = torch.randint(0, cfg.vocab_size, (2, 2 * cfg.ssm_chunk + 1), device=card,
+                        generator=torch.Generator(device=card).manual_seed(1))
+    before = mamba_passes_cuda.launches
+    model.prefill(params, {"tokens": tok[:, :-1]})
+    assert mamba_passes_cuda.launches == before + cfg.n_layers
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    ssd = ssd_scan_cuda.launches
+    loss = model.loss(params, {"tokens": tok[:, :-1], "labels": tok[:, 1:]})
+    torch.autograd.grad(loss, leaves)
+    assert mamba_passes_cuda.launches == before + cfg.n_layers
+    assert ssd_scan_cuda.launches == ssd + 2 * cfg.n_layers
 
 
 def test_zamba2_prefill_and_decode_on_the_card_go_through_both_kernels(card):
