@@ -38,8 +38,9 @@ Phases, each on lines of its own; any failure exits non-zero:
    SSD scan (``ref.ssd_chunked``): at the ``tests/test_kernels.py`` shapes
    in f32 and bf16 (x, B, C in the dtype; log_a, dt f32, as the model
    feeds them), and at the prefill paths' shapes (mamba2-1.3b: Bt=8,
-   L=4096, H=64, P=64, N=128, Q=256; zamba2-2.7b: H=80, N=64) in the
-   model's dtypes and in all-f32; tolerances:
+   L=4096, H=64, P=64, N=128, Q=256; zamba2-2.7b: H=80, N=64; zamba2-7b:
+   H=112, N=64, B and C [Bt, L, 2, N] in two groups) in the model's dtypes
+   and in all-f32; tolerances:
    f32 max|d| < 1e-5 max|ref| at the test shapes (``tests/test_kernels.py``'s),
    1e-4 at the prefill shapes (the cumsum of 256 log-decays, taken in
    another order, moves each exp(cum_i - cum_j) by up to ~1e-5
@@ -350,8 +351,12 @@ SSD_SHAPES = [  # (Bt, L, H, P, N, Q): tests/test_kernels.py, then the prefill p
     (2, 64, 4, 8, 16, 16), (1, 128, 2, 64, 128, 32), (2, 32, 8, 16, 8, 32),
     (1, 64, 1, 128, 64, 64), (8, 4096, 64, 64, 128, 256), (8, 4096, 80, 64, 64, 256),
 ]
-#: the SSD shapes of the prefill paths: mamba2-1.3b's (the kernels line's) and zamba2-2.7b's
-SSD_PATHS = {(8, 4096, 64, 64, 128, 256): "mamba2-1.3b", (8, 4096, 80, 64, 64, 256): "zamba2-2.7b"}
+#: (Bt, L, H, P, N, Q, G): B and C in G groups, head h reading group h G / H: zamba2-7b's
+SSD_GROUPED_SHAPES = [(8, 4096, 112, 64, 64, 256, 2)]
+#: the SSD shapes of the prefill paths: mamba2-1.3b's (the kernels line's), zamba2-2.7b's
+#: and zamba2-7b's (in its two groups)
+SSD_PATHS = {(8, 4096, 64, 64, 128, 256): "mamba2-1.3b", (8, 4096, 80, 64, 64, 256): "zamba2-2.7b",
+             (8, 4096, 112, 64, 64, 256): "zamba2-7b"}
 # SSD scan vs ssd_chunked, max|d| / max|ref|: f32 at the test shapes (test_kernels.py),
 # f32 at the prefill shape (cumsum of 256 log-decays in another order), bf16 output
 SSD_TOL = {"float32": 1e-5, "float32@prefill": 1e-4, "bfloat16": 2e-2}
@@ -668,10 +673,10 @@ def floor_times(x, w, out):
 
 def ssd_floor(x, la, B, C, dt, Q):
     """``t_bytes_ms``, ``t_ops_ms`` and ``cuda_core_bound_ms`` of one SSD
-    scan: x [Bt, L, H, P] and B, C [Bt, L, N] in their dtype, log_a and dt
-    f32, read once, y written once.  The products the function needs,
-    causal half only (Q(Q+1)/2 pairs j <= i): C B^T once per (b, chunk),
-    as B and C are shared by the heads, at the inputs' type (bf16 products
+    scan: x [Bt, L, H, P] and B, C [Bt, L, N] (or [Bt, L, G, N]) in their
+    dtype, log_a and dt f32, read once, y written once.  The products the
+    function needs, causal half only (Q(Q+1)/2 pairs j <= i): C B^T once per
+    (b, chunk, group), as B and C are shared by a group's heads, at the inputs' type (bf16 products
     are exact in f32); scores xdt, C S and the state update per (b, h,
     chunk) in f32 (xdt and the decays are f32).  An f32-accurate product
     runs at the faster of the CUDA cores and split TF32 (three products at
@@ -679,12 +684,12 @@ def ssd_floor(x, la, B, C, dt, Q):
     CUDA-core-only figure is the bound that earlier versions of this script
     printed."""
     Bt, L, H, Pd = x.shape
-    N = B.shape[-1]
+    N, G = B.shape[-1], (B.shape[2] if B.dim() == 4 else 1)
     dn = str(x.dtype).split(".")[1]
     nbytes = (2 * x.numel() * x.element_size() + (B.numel() + C.numel()) * B.element_size()
               + (la.numel() + dt.numel()) * la.element_size())
     n_chunks = Bt * (L // Q)
-    ops_cb = n_chunks * Q * (Q + 1) * N
+    ops_cb = n_chunks * G * Q * (Q + 1) * N
     ops_cs = n_chunks * H * 2 * Q * N * Pd
     ops_f32 = n_chunks * H * (Q * (Q + 1) * Pd + 2 * Q * N * Pd) + ops_cs
     f32_s = min(1 / PEAK["float32"], 3 / PEAK["tf32"])
@@ -1244,9 +1249,10 @@ def _cross_path(torch, m, p, prompt, seed, extra=None, cache=None):
     return c_max, c_rms, excess, dec.launches - before
 
 
-# (iii.b) the Mamba block's pass kernels: (arch, B, L) of the prefill cell and
-# zamba2-2.7b's prefill, bf16, one block at the published widths (seed 0)
-PASS_CELLS = [("mamba2-1.3b", 64, 4096), ("zamba2-2.7b", 8, 4096)]
+# (iii.b) the Mamba block's pass kernels: (arch, B, L) of the prefill cell,
+# zamba2-2.7b's prefill and zamba2-7b's (two B/C groups; the port-only
+# lookup), bf16, one block at the published widths (seed 0)
+PASS_CELLS = [("mamba2-1.3b", 64, 4096), ("zamba2-2.7b", 8, 4096), ("zamba2-7b", 8, 4096)]
 PASS_ULPS = 4  # each kernel vs the plain pass on its inputs: tests/test_torch_cuda.py's limit
 
 
@@ -1256,14 +1262,94 @@ def _bf16_ulps(got, want):
     return (got.float() - want.float()).abs().max().item() / 2.0 ** (math.floor(math.log2(m)) - 7)
 
 
+def ssd_scan_rows(torch, rng):
+    """Phase 3's SSD rows: the kernel against ``ssd_chunked`` on the same
+    inputs at every ``SSD_SHAPES`` entry (B and C shared by the heads) and
+    every ``SSD_GROUPED_SHAPES`` entry (B and C in G groups), in f32 and
+    bf16, each held to ``SSD_TOL`` and timed beside the plain version and
+    its floor; at a prefill path's shape, the device kernels of a call."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    ssd_rows = []
+    for Bt, L, H, Pd, N, Q, G in [s + (1,) for s in SSD_SHAPES] + SSD_GROUPED_SHAPES:
+        prefill_shape = (Bt, L, H, Pd, N, Q) in SSD_PATHS
+        bc = (Bt, L, N) if G == 1 else (Bt, L, G, N)
+        f32 = np.float32
+        x32, la, B32, C32, dt = (torch.from_numpy(np.ascontiguousarray(a, dtype=f32)).cuda() for a in (
+            rng.standard_normal((Bt, L, H, Pd), dtype=f32),
+            -np.abs(rng.standard_normal((Bt, L, H), dtype=f32)) * 0.3,
+            rng.standard_normal(bc, dtype=f32), rng.standard_normal(bc, dtype=f32),
+            np.logaddexp(rng.standard_normal((Bt, L, H), dtype=f32), f32(0))))
+        for dtype in (torch.float32, torch.bfloat16):
+            # x, B, C in the dtype; log_a and dt f32, as the model feeds them
+            x, B, C = x32.to(dtype), B32.to(dtype), C32.to(dtype)
+            got = ssd_kernel.ssd_scan_cuda(x, la, B, C, dt, Q)
+            ref = ssd_chunked(x, la, B, C, dt, Q)
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or not bool(torch.isfinite(got.float()).all()):
+                fail(f"ssd_scan {(Bt, L, H, Pd, N, Q, G)} {dtype}: bad output")
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            dn = str(dtype).split(".")[1]
+            tol = SSD_TOL[dn + ("@prefill" if prefill_shape and dn == "float32" else "")] * scale
+            ok = err <= tol
+            reps = 5 if prefill_shape else 50
+            row = dict(
+                shape=f"Bt{Bt}.L{L}.H{H}.P{Pd}.N{N}.Q{Q}" + (f".G{G}" if G > 1 else ""),
+                Bt=Bt, L=L, H=H, P=Pd, N=N, Q=Q, G=G,
+                dtype=dn, max_abs_err=err, max_abs_ref=scale, tol=tol, ok=ok,
+                kernel_ms=graph_ms(torch, lambda: ssd_kernel.ssd_scan_cuda(x, la, B, C, dt, Q),
+                                   reps),
+                plain_ms=(event_ms(torch, lambda: ssd_chunked(x, la, B, C, dt, Q))
+                          if prefill_shape else
+                          graph_ms(torch, lambda: ssd_chunked(x, la, B, C, dt, Q))),
+                library_ms=None,  # no single PyTorch call computes the SSD scan
+                call_ms=paced_ms(torch, lambda: ssd_scan(x, la, B, C, dt, Q), reps, 1),
+            )
+            row.update(ssd_floor(x, la, B, C, dt, Q))
+            row["bound_ms"], row["bound_by"] = bound(row["t_bytes_ms"], row["t_ops_ms"])
+            row["path"] = SSD_PATHS.get((Bt, L, H, Pd, N, Q))
+            ssd_rows.append(row)
+            say("[kernel] ssd_scan {shape} {dtype} max_abs_err={max_abs_err:.3e} tol={tol:.3e} "
+                "kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms=None "
+                "bound_ms={bound_ms:.5f} ({bound_by}) cuda_core_bound_ms={cuda_core_bound_ms:.5f} "
+                "call_ms={call_ms:.5f} ok={ok}".format(**row))
+            if not ok:
+                fail(f"ssd_scan {row['shape']} {dn}: max|d| {err} > tol {tol}")
+            if prefill_shape:
+                # the device kernels of a call (C B^T, then the scan), over four calls:
+                # the profiler may drop a window's first events, so each kernel must be
+                # recorded in three or four of them, and is timed by its mean
+                calls = 4
+                dev = device_activity(torch, lambda: [
+                    ssd_kernel.ssd_scan_cuda(x, la, B, C, dt, Q) for _ in range(calls)])
+                row["device_kernels_per_call"] = len(dev)
+                row["device_launches_by_kernel"] = {k: n for k, (n, _) in dev.items()}
+                row["device_ms_by_kernel"] = {k: ms / n for k, (n, ms) in dev.items()}
+                say(f"[plan] ssd_scan {row['shape']} {dn}: device kernels per call "
+                    f"{row['device_kernels_per_call']}: " + "; ".join(
+                        f"{k[:70]} {ms:.5f} ms ({dev[k][0]} of {calls} calls recorded)"
+                        for k, ms in row["device_ms_by_kernel"].items()))
+                if len(dev) != 2 or any(not calls - 1 <= n <= calls for n, _ in dev.values()):
+                    fail(f"{calls} ssd_scan calls ran device kernels {dev}, not 2 a call")
+        del x32, la, B32, C32, dt, x, B, C, got, ref
+    say(f"[kernel] {len(ssd_rows)} ssd_scan comparisons within tolerance; "
+        f"launches while comparing = {ssd_kernel.ssd_scan_cuda.launches}")
+    return ssd_rows
+
+
 def mamba_passes_row(torch, report):
     """Phase (iii.b): the Mamba pass kernels at ``PASS_CELLS``: each held
     to the plain pass on the plain block's own intermediates, timed beside
     its byte floor, the plain passes and ``F.rms_norm``; the router's
-    counter read with grad off and under autograd."""
+    counter read with grad off and under autograd; the block's SSD kernel
+    call timed on its own inputs."""
     import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs.port_only import get_port_config
     from repro_torch.kernels.mamba_passes import kernel as mp
     from repro_torch.kernels.mamba_passes import ops, ref
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
@@ -1273,7 +1359,9 @@ def mamba_passes_row(torch, report):
 
     rows = report["mamba_passes"] = []
     for arch, B, L in PASS_CELLS:
-        cfg = dataclasses.replace(get_config(arch), n_layers=1)
+        cfg = dataclasses.replace((get_config if arch in ARCHS else get_port_config)(arch),
+                                  n_layers=1)
+        G = ref.ssm_groups(cfg)
         gen = torch.Generator(device="cuda").manual_seed(0)
         p = init_mamba_block(gen, cfg, torch.bfloat16)
         x = torch.randn((B, L, cfg.d_model), generator=gen, device="cuda").bfloat16()
@@ -1295,8 +1383,8 @@ def mamba_passes_row(torch, report):
             (h, zx), (g, _) = seen
             y = conv[5]
             conv_args = (p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"], cfg.d_inner,
-                         cfg.ssm_state, H)
-            gate_args = (p["D"], p["out_norm"]["scale"], eps, Pd)
+                         cfg.ssm_state, H, G)
+            gate_args = (p["D"], p["out_norm"]["scale"], eps, Pd, G)
             got_conv = mp.conv_silu_cuda(zx, *conv_args)
             ulps = dict(norm=_bf16_ulps(mp.rmsnorm_cuda(x, p["norm"]["scale"], eps), h),
                         conv=max(_bf16_ulps(a, b) for a, b in zip(got_conv[:3], conv[:3])),
@@ -1311,6 +1399,9 @@ def mamba_passes_row(torch, report):
                 add=lambda: x + h,  # the residual add: two reads and a write of [B, L, d_model]
             )
             ms = {k: event_ms(torch, fn, reps=10, warm=2) for k, fn in calls.items()}
+            scan_in = tuple(t.contiguous() for t in (conv[0].view(B, L, H, Pd), conv[4], conv[1],
+                                                     conv[2], conv[3]))
+            scan_ms = event_ms(torch, lambda: ssd_scan(*scan_in, cfg.ssm_chunk), reps=5)
             proj_ms = (event_ms(torch, lambda: linear(p["in_proj"], h), reps=5)
                        + event_ms(torch, lambda: linear(p["out_proj"], g), reps=5))
             plain_ms = event_ms(torch, lambda: ref.mamba_passes(cfg, p, x, lambda *a: y)) - proj_ms
@@ -1325,14 +1416,16 @@ def mamba_passes_row(torch, report):
         ops.mamba_passes(cfg, pg, x[:1, :cfg.ssm_chunk], ssd_scan)
         under_grad = mp.mamba_passes_cuda.launches - before
         floor = {k: v / HBM_BPS * 1e3 for k, v in mp.floor_bytes(cfg, B * L, 2).items()}
-        row = dict(arch=arch, B=B, L=L, dtype="bfloat16", max_ulps=max(ulps.values()),
+        row = dict(arch=arch, B=B, L=L, groups=G, scan_ms=scan_ms, dtype="bfloat16",
+                   max_ulps=max(ulps.values()),
                    ulps=ulps, f32_max_rel=f32_rel, launches=launched, launches_under_grad=under_grad,
                    **{f"{k}_ms": v for k, v in ms.items()},
                    **{f"{k}_bound_ms": v for k, v in floor.items()},
                    passes_ms=sum(ms.values()), bound_ms=sum(floor.values()),
                    plain_ms=plain_ms, library_norm_ms=library_ms)
         rows.append(row)
-        say("[passes] {arch} B={B} L={L} bf16: ".format(**row) + ", ".join(
+        say("[passes] {arch} B={B} L={L} G={groups} bf16: SSD call {scan_ms:.4f} ms; "
+            .format(**row) + ", ".join(
             f"{k} {ms[k]:.4f} ms (floor {floor[k]:.4f}, {floor[k] / ms[k]:.1%})" for k in ms)
             + "; passes {passes_ms:.4f} ms against a floor of {bound_ms:.4f} ms and the plain "
             "passes' {plain_ms:.4f} ms; F.rms_norm {library_norm_ms:.4f} ms; max ulps vs plain "
@@ -2741,7 +2834,6 @@ def main():
     from repro_torch.kernels.s2d_conv import kernel as s2d_kernel
     from repro_torch.kernels.s2d_conv.ref import s2d_conv_ref
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
     from repro_torch.launch import serve
     from repro_torch.models import mamba2, transformer
@@ -2958,70 +3050,7 @@ def main():
         f"launches while comparing = {dec_kernel.decode_attn_cuda.launches}")
     report["decode_rows"] = dec_rows
 
-    ssd_rows = []
-    for Bt, L, H, Pd, N, Q in SSD_SHAPES:
-        prefill_shape = (Bt, L, H, Pd, N, Q) in SSD_PATHS
-        f32 = np.float32
-        x32, la, B32, C32, dt = (torch.from_numpy(np.ascontiguousarray(a, dtype=f32)).cuda() for a in (
-            rng.standard_normal((Bt, L, H, Pd), dtype=f32),
-            -np.abs(rng.standard_normal((Bt, L, H), dtype=f32)) * 0.3,
-            rng.standard_normal((Bt, L, N), dtype=f32), rng.standard_normal((Bt, L, N), dtype=f32),
-            np.logaddexp(rng.standard_normal((Bt, L, H), dtype=f32), f32(0))))
-        for dtype in (torch.float32, torch.bfloat16):
-            # x, B, C in the dtype; log_a and dt f32, as the model feeds them
-            x, B, C = x32.to(dtype), B32.to(dtype), C32.to(dtype)
-            got = ssd_kernel.ssd_scan_cuda(x, la, B, C, dt, Q)
-            ref = ssd_chunked(x, la, B, C, dt, Q)
-            torch.cuda.synchronize()
-            if got.shape != ref.shape or not bool(torch.isfinite(got.float()).all()):
-                fail(f"ssd_scan {(Bt, L, H, Pd, N, Q)} {dtype}: bad output")
-            err = (got.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            dn = str(dtype).split(".")[1]
-            tol = SSD_TOL[dn + ("@prefill" if prefill_shape and dn == "float32" else "")] * scale
-            ok = err <= tol
-            reps = 5 if prefill_shape else 50
-            row = dict(
-                shape=f"Bt{Bt}.L{L}.H{H}.P{Pd}.N{N}.Q{Q}", Bt=Bt, L=L, H=H, P=Pd, N=N, Q=Q,
-                dtype=dn, max_abs_err=err, max_abs_ref=scale, tol=tol, ok=ok,
-                kernel_ms=graph_ms(torch, lambda: ssd_kernel.ssd_scan_cuda(x, la, B, C, dt, Q),
-                                   reps),
-                plain_ms=(event_ms(torch, lambda: ssd_chunked(x, la, B, C, dt, Q))
-                          if prefill_shape else
-                          graph_ms(torch, lambda: ssd_chunked(x, la, B, C, dt, Q))),
-                library_ms=None,  # no single PyTorch call computes the SSD scan
-                call_ms=paced_ms(torch, lambda: ssd_scan(x, la, B, C, dt, Q), reps, 1),
-            )
-            row.update(ssd_floor(x, la, B, C, dt, Q))
-            row["bound_ms"], row["bound_by"] = bound(row["t_bytes_ms"], row["t_ops_ms"])
-            row["path"] = SSD_PATHS.get((Bt, L, H, Pd, N, Q))
-            ssd_rows.append(row)
-            say("[kernel] ssd_scan {shape} {dtype} max_abs_err={max_abs_err:.3e} tol={tol:.3e} "
-                "kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} library_ms=None "
-                "bound_ms={bound_ms:.5f} ({bound_by}) cuda_core_bound_ms={cuda_core_bound_ms:.5f} "
-                "call_ms={call_ms:.5f} ok={ok}".format(**row))
-            if not ok:
-                fail(f"ssd_scan {row['shape']} {dn}: max|d| {err} > tol {tol}")
-            if prefill_shape:
-                # the device kernels of a call (C B^T, then the scan), over four calls:
-                # the profiler may drop a window's first events, so each kernel must be
-                # recorded in three or four of them, and is timed by its mean
-                calls = 4
-                dev = device_activity(torch, lambda: [
-                    ssd_kernel.ssd_scan_cuda(x, la, B, C, dt, Q) for _ in range(calls)])
-                row["device_kernels_per_call"] = len(dev)
-                row["device_launches_by_kernel"] = {k: n for k, (n, _) in dev.items()}
-                row["device_ms_by_kernel"] = {k: ms / n for k, (n, ms) in dev.items()}
-                say(f"[plan] ssd_scan {row['shape']} {dn}: device kernels per call "
-                    f"{row['device_kernels_per_call']}: " + "; ".join(
-                        f"{k[:70]} {ms:.5f} ms ({dev[k][0]} of {calls} calls recorded)"
-                        for k, ms in row["device_ms_by_kernel"].items()))
-                if len(dev) != 2 or any(not calls - 1 <= n <= calls for n, _ in dev.values()):
-                    fail(f"{calls} ssd_scan calls ran device kernels {dev}, not 2 a call")
-        del x32, la, B32, C32, dt, x, B, C, got, ref
-    say(f"[kernel] {len(ssd_rows)} ssd_scan comparisons within tolerance; "
-        f"launches while comparing = {ssd_kernel.ssd_scan_cuda.launches}")
-    report["ssd_rows"] = ssd_rows
+    report["ssd_rows"] = ssd_scan_rows(torch, rng)
 
     phase_done("kernel phase")
 
@@ -3557,7 +3586,8 @@ def main():
         library_ms=main["library_cold_ms"],
     )
     # the SSD scan at the prefill path's shape in the model's dtypes
-    (main,) = [r for r in ssd_rows if r["path"] == SSM["arch"] and r["dtype"] == "bfloat16"]
+    (main,) = [r for r in report["ssd_rows"]
+               if r["path"] == SSM["arch"] and r["dtype"] == "bfloat16"]
     ssd_entry = dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:27",

@@ -1,0 +1,28 @@
+"""Configurations only the port runs, looked up beside the registry.
+
+``configs.registry`` is a verbatim copy of the JAX package's and holds its
+ten architectures.  A configuration of a family the JAX package lacks
+(zamba2 as released: ``models.zamba2``) is found here instead, so that the
+registry, and every test that holds the port to it, stays as it is.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, Tuple
+
+from repro_torch.models.config import ModelConfig
+
+_MODULES: Dict[str, str] = {
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
+}
+
+PORT_ARCHS: Tuple[str, ...] = tuple(_MODULES)
+
+
+def get_port_config(arch: str) -> ModelConfig:
+    try:
+        mod = _MODULES[arch]
+    except KeyError:
+        raise KeyError(f"unknown port-only arch '{arch}'; available: {list(PORT_ARCHS)}") from None
+    return importlib.import_module(mod).CONFIG

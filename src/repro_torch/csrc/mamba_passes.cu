@@ -43,7 +43,14 @@
 //      keeps the plain path's rounding points: y + D x, silu(z) and their
 //      product each rounded to the model's dtype (the D skip's product and sum
 //      as separate f32 operations, no fused multiply-add, as the plain path
-//      computes them), then the row's f32 norm.
+//      computes them), then the row's f32 norm.  Where B and C come in G
+//      groups (zamba2), the norm is taken over each group's d_inner / G
+//      channels: one block a (token row, group), the same code over a row of
+//      d_inner / G.
+//
+// Groups reach kernel 2 as its channel count: the B and C channels of all G
+// groups are contiguous in the input projection, so N there is G times the
+// state size, and B and C are written as [B, L, G N], the scan's [B, L, G, N].
 //
 // T is float or __nv_bfloat16: x, z, y, the conv weights and every output but
 // dt and log_a are of it; norm scales, conv_b, D, dt_bias and A_log are f32.
@@ -290,19 +297,24 @@ mamba_conv_silu_kernel(const T* __restrict__ zx, int ld, const T* __restrict__ c
 
 // ------------------------------------------------ 3. D skip, gate, norm ----
 
+// A block's row is one group of Dg = d_inner / G channels of one token: y, x
+// and out are [rows, G, Dg], z strided by ldz.
 template <typename T, int CPT>
 __global__ void __launch_bounds__(GATE_THREADS)
 mamba_gate_norm_kernel(const T* __restrict__ y, const T* __restrict__ x, const T* __restrict__ z,
                        int ldz, const float* __restrict__ Dskip, const float* __restrict__ scale,
-                       T* __restrict__ out, int Din, int Pd, float eps) {
+                       T* __restrict__ out, int Dg, int Pd, int G, float eps) {
     using P = Pack<T>;
     constexpr int V = P::N;
     __shared__ float part[32];
-    const long long row = blockIdx.x;
-    const int nch = Din / V;
-    const T* yr = y + row * Din;
-    const T* xr = x + row * Din;
-    const T* zr = z + row * ldz;
+    const long long row = blockIdx.x;  // (token, group)
+    const int grp = (int)blockIdx.x % G;
+    const int nch = Dg / V;
+    const T* yr = y + row * Dg;
+    const T* xr = x + row * Dg;
+    const T* zr = z + (long long)((int)blockIdx.x / G) * ldz + grp * Dg;
+    Dskip += grp * (Dg / Pd);
+    scale += grp * Dg;
     uint4 ry[CPT], rx[CPT], rz[CPT];
 #pragma unroll
     for (int k = 0; k < CPT; ++k) {
@@ -338,8 +350,8 @@ mamba_gate_norm_kernel(const T* __restrict__ y, const T* __restrict__ x, const T
     __syncthreads();
     // every warp sums the partials itself: no second barrier
     const float r = rsqrtf(warp_sum(lane < (int)(blockDim.x >> 5) ? part[lane] : 0.0f) /
-                               (float)Din + eps);
-    T* orow = out + row * Din;
+                               (float)Dg + eps);
+    T* orow = out + row * Dg;
 #pragma unroll
     for (int k = 0; k < CPT; ++k) {
         const int ch = threadIdx.x + k * blockDim.x;
@@ -423,13 +435,17 @@ int conv_silu(const void* zx, int ld, const void* conv_w, const void* conv_b,
 
 template <typename T>
 int gate_norm(const void* y, const void* x, const void* z, int ldz, const void* Dskip,
-              const void* scale, void* out, int rows, int Din, int Pd, float eps,
+              const void* scale, void* out, int rows, int Din, int Pd, int G, float eps,
               cudaStream_t s) {
     constexpr int V = Pack<T>::N;
-    if (rows <= 0 || Din <= 0 || Pd <= 0 || Din % V || Pd % V || Din % Pd || ldz < Din)
+    if (rows <= 0 || Din <= 0 || Pd <= 0 || G <= 0 || Din % V || Pd % V || Din % Pd ||
+        (Din / Pd) % G || ldz < Din)
         return (int)cudaErrorInvalidValue;
+    const int Dg = Din / G;  // a group's channels, whole heads
+    const long long blocks = (long long)rows * G;
+    if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
     // CPT 16-byte chunks a thread, a warp multiple of threads covering the row
-    const int nch = Din / V;
+    const int nch = Dg / V;
     const int t4 = (nch + 4 * 32 - 1) / (4 * 32) * 32, t8 = (nch + 8 * 32 - 1) / (8 * 32) * 32;
     const T* yp = static_cast<const T*>(y);
     const T* xp = static_cast<const T*>(x);
@@ -438,9 +454,11 @@ int gate_norm(const void* y, const void* x, const void* z, int ldz, const void* 
     const float* sp = static_cast<const float*>(scale);
     T* op = static_cast<T*>(out);
     if (t4 <= GATE_THREADS)
-        mamba_gate_norm_kernel<T, 4><<<rows, t4, 0, s>>>(yp, xp, zp, ldz, dp, sp, op, Din, Pd, eps);
+        mamba_gate_norm_kernel<T, 4><<<(unsigned)blocks, t4, 0, s>>>(yp, xp, zp, ldz, dp, sp, op,
+                                                                      Dg, Pd, G, eps);
     else if (t8 <= GATE_THREADS)
-        mamba_gate_norm_kernel<T, 8><<<rows, t8, 0, s>>>(yp, xp, zp, ldz, dp, sp, op, Din, Pd, eps);
+        mamba_gate_norm_kernel<T, 8><<<(unsigned)blocks, t8, 0, s>>>(yp, xp, zp, ldz, dp, sp, op,
+                                                                      Dg, Pd, G, eps);
     else
         return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
@@ -472,11 +490,12 @@ extern "C" int mamba_conv_silu(const void* zx, int ld, const void* conv_w, const
 
 extern "C" int mamba_gate_norm(const void* y, const void* x, const void* z, int ldz,
                                const void* Dskip, const void* scale, void* out, int rows, int Din,
-                               int Pd, float eps, int dtype, void* stream) {
+                               int Pd, int G, float eps, int dtype, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (dtype == 0)
-        return gate_norm<float>(y, x, z, ldz, Dskip, scale, out, rows, Din, Pd, eps, s);
+        return gate_norm<float>(y, x, z, ldz, Dskip, scale, out, rows, Din, Pd, G, eps, s);
     if (dtype == 1)
-        return gate_norm<__nv_bfloat16>(y, x, z, ldz, Dskip, scale, out, rows, Din, Pd, eps, s);
+        return gate_norm<__nv_bfloat16>(y, x, z, ldz, Dskip, scale, out, rows, Din, Pd, G, eps,
+                                        s);
     return (int)cudaErrorInvalidValue;
 }

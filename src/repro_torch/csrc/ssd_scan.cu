@@ -4,7 +4,8 @@
 // kernels/ssd_scan/kernel.py::_ssd_kernel (ssd_scan_pallas).
 //
 // What it computes.  x [Bt, L, H, P], log_a and dt [Bt, L, H] (f32), B and C
-// [Bt, L, N] (shared by all heads), all contiguous in the JAX layout, give for
+// [Bt, L, NG, N] (NG groups; head h reads group h / (H / NG); NG = 1 is the
+// JAX layout's [Bt, L, N], shared by all heads), all contiguous, give for
 // every (b, h) and every chunk of Q positions, in order,
 //
 //     xdt = x * dt,   cum = cumsum(log_a),   total = cum[Q-1],
@@ -16,7 +17,7 @@
 // is cast to x's dtype (f32 or bf16; B and C share it) once.
 //
 // What bounds it.  Operations.  The function needs the causal half of C B^T
-// once per (b, chunk), as B and C are shared by the heads, and per
+// once per (b, chunk, group), as B and C are shared by a group's heads, and per
 // (b, h, chunk) the causal scores times xdt and the two products with the
 // state, Q(Q+1)P + 4QNP (12.6 MFLOP at Q = 256, N = 128, P = 64), for some
 // 33 KB of input: hundreds of operations per byte, far above the card's
@@ -27,9 +28,9 @@
 //
 // Design: two launches a call.
 //
-//   1. ssd_scan_cb_kernel computes G[b, c] = C_c B_c^T, f32 [Q, Q], once per
-//      (batch row, chunk) into a workspace [Bt, nc, Q, Q] that the wrapper
-//      allocates: one block of 4 warps per causal 64 x 64 tile (j tile <=
+//   1. ssd_scan_cb_kernel computes G[b, c, g] = C_c B_c^T, f32 [Q, Q], once per
+//      (batch row, chunk, group) into a workspace [Bt, nc, NG, Q, Q] that the
+//      wrapper allocates: one block of 4 warps per causal 64 x 64 tile (j tile <=
 //      i tile; the others are never written or read), the contraction over N
 //      in slabs of 32.  bf16 inputs go on mma.sync m16n8k16 (exact products,
 //      f32 sums); f32 inputs on split TF32 (below).
@@ -39,8 +40,8 @@
 //      parallel and in no order, so the block loops over its chunks itself).
 //      Per chunk it computes xdt and the cumsum, then per row tile of 64
 //      positions i: acc = exp(cum_i) (C_tile S); for each tile of j <= i it
-//      reads the G tile (the 64 heads of a batch row read the same G, so it
-//      is served from L2) and adds scores xdt_tile to acc, the scores
+//      reads the G tile (the H / NG heads of a group of a batch row read the
+//      same G, so it is served from L2) and adds scores xdt_tile to acc, the scores
 //      G o exp(cum_i - cum_j) formed as their mma fragments are read (no pass
 //      of their own, no barrier); then casts acc once and stores it.  After every
 //      row tile has read the old S, the state update
@@ -208,23 +209,24 @@ __device__ __forceinline__ void cb_products(const CbRowBf16* Cs, const CbRowBf16
     }
 }
 
-// G[b, c, i, j] = sum_n C[b, c*Q + i, n] B[b, c*Q + j, n] for the causal tiles:
-// grid (nt (nt + 1) / 2, nc, Bt), nt = ceil(Q / 64); block x is tile
-// (ti, tj), tj <= ti, in row order.
+// G[b, c, g, i, j] = sum_n C[b, c*Q + i, g, n] B[b, c*Q + j, g, n] for the causal
+// tiles: grid (nt (nt + 1) / 2, nc, Bt NG), nt = ceil(Q / 64); block x is tile
+// (ti, tj), tj <= ti, in row order; block z is (b, g).
 template <typename T>
 __global__ void __launch_bounds__(CB_THREADS)
 ssd_scan_cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm, float* __restrict__ G,
-                   int L, int N, int Q) {
+                   int L, int N, int Q, int NG) {
     constexpr int LD = CbSmem<T>::LD;
     __shared__ __align__(16) T Cs[TILE][LD];
     __shared__ __align__(16) T Bs[TILE][LD];
     int ti = 0;
     while ((ti + 1) * (ti + 2) / 2 <= (int)blockIdx.x) ++ti;
     const int tj = blockIdx.x - ti * (ti + 1) / 2;
-    const int c = blockIdx.y, b = blockIdx.z, nc = L / Q;
+    const int c = blockIdx.y, b = (int)blockIdx.z / NG, grp = (int)blockIdx.z % NG, nc = L / Q;
+    const int ldn = NG * N;  // a position's B (C) row: every group's
     const long long row0 = (long long)b * L + (long long)c * Q;
-    const T* Cc = Cm + (row0 + ti * TILE) * N;
-    const T* Bc = Bm + (row0 + tj * TILE) * N;
+    const T* Cc = Cm + (row0 + ti * TILE) * ldn + grp * N;
+    const T* Bc = Bm + (row0 + tj * TILE) * ldn + grp * N;
     const int ni = min(TILE, Q - ti * TILE), nj = min(TILE, Q - tj * TILE);
     const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
 
@@ -235,14 +237,14 @@ ssd_scan_cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm, float* __
         for (int q = 0; q < TILE * CB_BK / CB_THREADS; ++q) {
             const int e = threadIdx.x + q * CB_THREADS;
             const int r = e / CB_BK, k = e % CB_BK, n = k0 + k;
-            Cs[r][k] = (r < ni && n < N) ? Cc[(long long)r * N + n] : T(0.0f);
-            Bs[r][k] = (r < nj && n < N) ? Bc[(long long)r * N + n] : T(0.0f);
+            Cs[r][k] = (r < ni && n < N) ? Cc[(long long)r * ldn + n] : T(0.0f);
+            Bs[r][k] = (r < nj && n < N) ? Bc[(long long)r * ldn + n] : T(0.0f);
         }
         __syncthreads();
         cb_products(Cs, Bs, acc, wm, wn);
     }
     const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-    float* Gt = G + (((long long)b * nc + c) * Q + ti * TILE) * Q + tj * TILE;
+    float* Gt = G + ((((long long)b * nc + c) * NG + grp) * Q + ti * TILE) * Q + tj * TILE;
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -363,24 +365,25 @@ __host__ __device__ constexpr int scan_smem_bytes(int XS, int N, int Q, int tsiz
            stages * TILE * (round_up(N, 16) + 8) * tsize;
 }
 
-// Rows [r0, r0 + 64) of a [Q, N] matrix of B or C into a tile of T with row
-// stride ld, zero past Q and N: 16-byte cp.async where rows are whole 16-byte
-// chunks and aligned (vec), else element by element.
+// Rows [r0, r0 + 64) of a [Q, N] matrix of B or C (rows ldn apart in src) into a
+// tile of T with row stride ld, zero past Q and N: 16-byte cp.async where rows
+// are whole 16-byte chunks and aligned (vec), else element by element.
 template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* __restrict__ src, int r0,
-                                          int Q, int N, int NK, bool vec) {
+__device__ __forceinline__ void load_tile(T* dst, int ld, const T* __restrict__ src, int ldn,
+                                          int r0, int Q, int N, int NK, bool vec) {
     constexpr int CH = 16 / sizeof(T);
     if (vec) {
         const int cpr = NK / CH;
         for (int c = threadIdx.x; c < TILE * cpr; c += THREADS) {
             const int r = c / cpr, n = (c % cpr) * CH;
             const bool ok = r0 + r < Q && n < N;
-            cp_async16(dst + r * ld + n, ok ? src + (long long)(r0 + r) * N + n : src, ok);
+            cp_async16(dst + r * ld + n, ok ? src + (long long)(r0 + r) * ldn + n : src, ok);
         }
     } else {
         for (int e = threadIdx.x; e < TILE * NK; e += THREADS) {
             const int r = e / NK, n = e % NK;
-            dst[r * ld + n] = (r0 + r < Q && n < N) ? src[(long long)(r0 + r) * N + n] : T(0.0f);
+            dst[r * ld + n] =
+                (r0 + r < Q && n < N) ? src[(long long)(r0 + r) * ldn + n] : T(0.0f);
         }
     }
 }
@@ -411,7 +414,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ log_a,
                 const T* __restrict__ Bm, const T* __restrict__ Cm,
                 const float* __restrict__ dt, const float* __restrict__ G, T* __restrict__ out,
-                int L, int H, int N, int Q) {
+                int L, int H, int N, int Q, int NG) {
     using D = Dims<P>;
     constexpr int XS = D::XS, CG = D::CG, NT = D::NT;
     constexpr int CH = 16 / sizeof(T);  // elements of a 16-byte chunk
@@ -431,6 +434,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ log_a,
     const int t_stride = ring ? TILE * BS : 0, g_stride = ring ? TILE * SCS : 0;
 
     const int h = blockIdx.x, b = blockIdx.y;
+    const int grp = h / (H / NG), ldn = NG * N;  // this head's group; a position's B row
     const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
     const int g = lane / 4, t = lane % 4;
     const int wr = warp % 4, wc = warp / 4;  // a warp's row band and column group
@@ -444,12 +448,12 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ log_a,
 
     for (int chunk = 0; chunk < nc; ++chunk) {
         const long long row0 = (long long)b * L + (long long)chunk * Q;  // first position
-        const T* Bc = Bm + row0 * N;
-        const T* Cc = Cm + row0 * N;
-        const float* Gc = G + ((long long)b * nc + chunk) * Q * Q;
+        const T* Bc = Bm + row0 * ldn + grp * N;
+        const T* Cc = Cm + row0 * ldn + grp * N;
+        const float* Gc = G + (((long long)b * nc + chunk) * NG + grp) * Q * Q;
         __syncthreads();  // the previous chunk is done with every buffer
         // the first C tile and G tile load while xdt and the cumsum are computed
-        load_tile(t_s, CS, Cc, 0, Q, N, NK, vec_bc);
+        load_tile(t_s, CS, Cc, ldn, 0, Q, N, NK, vec_bc);
         load_g(g_s, Gc, 0, 0, Q);
         cp_async_commit();
         for (int j = tid; j < QP; j += THREADS) {
@@ -518,8 +522,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ log_a,
             __syncthreads();
             const auto next_t = [&] {
                 T* nxt = t_s + (tb ^ 1) * t_stride;
-                if (ti + 1 < ntiles) load_tile(nxt, CS, Cc, i0 + TILE, Q, N, NK, vec_bc);
-                else load_tile(nxt, BS, Bc, 0, Q, N, NK, vec_bc);  // the state update's first
+                if (ti + 1 < ntiles) load_tile(nxt, CS, Cc, ldn, i0 + TILE, Q, N, NK, vec_bc);
+                else load_tile(nxt, BS, Bc, ldn, 0, Q, N, NK, vec_bc);  // the state update's first
                 cp_async_commit();
             };
             if constexpr (ring) next_t();
@@ -643,8 +647,9 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ log_a,
                 __syncthreads();
                 const auto next_b = [&] {
                     T* nxt = t_s + (tb ^ 1) * t_stride;
-                    if (tj + 1 < ntiles) load_tile(nxt, BS, Bc, (tj + 1) * TILE, Q, N, NK, vec_bc);
-                    else if (m0 + 128 < NK) load_tile(nxt, BS, Bc, 0, Q, N, NK, vec_bc);
+                    if (tj + 1 < ntiles)
+                        load_tile(nxt, BS, Bc, ldn, (tj + 1) * TILE, Q, N, NK, vec_bc);
+                    else if (m0 + 128 < NK) load_tile(nxt, BS, Bc, ldn, 0, Q, N, NK, vec_bc);
                     cp_async_commit();
                 };
                 if constexpr (ring) next_b();
@@ -684,7 +689,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ log_a,
 
 template <typename T, int P>
 int launch(const void* x, const float* log_a, const void* Bm, const void* Cm,
-           const float* dt, float* G, void* out, int Bt, int L, int H, int N, int Q,
+           const float* dt, float* G, void* out, int Bt, int L, int H, int N, int Q, int NG,
            cudaStream_t stream) {
     // two buffers a ring where they fit, else one
     const int stages = scan_smem_bytes(Dims<P>::XS, N, Q, (int)sizeof(T), 2) <= SMEM_MAX ? 2 : 1;
@@ -705,45 +710,47 @@ int launch(const void* x, const float* log_a, const void* Bm, const void* Cm,
     const T* B = static_cast<const T*>(Bm);
     const T* C = static_cast<const T*>(Cm);
     const int nt = (Q + TILE - 1) / TILE;
-    ssd_scan_cb_kernel<T><<<dim3(nt * (nt + 1) / 2, L / Q, Bt), CB_THREADS, 0, stream>>>(
-        B, C, G, L, N, Q);
+    ssd_scan_cb_kernel<T><<<dim3(nt * (nt + 1) / 2, L / Q, Bt * NG), CB_THREADS, 0, stream>>>(
+        B, C, G, L, N, Q, NG);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     kernel<<<dim3(H, Bt), THREADS, smem, stream>>>(static_cast<const T*>(x), log_a, B, C, dt,
-                                                   G, static_cast<T*>(out), L, H, N, Q);
+                                                   G, static_cast<T*>(out), L, H, N, Q, NG);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* x, const float* log_a, const void* Bm, const void* Cm,
              const float* dt, float* G, void* out, int Bt, int L, int H, int P, int N, int Q,
-             cudaStream_t stream) {
+             int NG, cudaStream_t stream) {
     switch (P) {
-        case 8: return launch<T, 8>(x, log_a, Bm, Cm, dt, G, out, Bt, L, H, N, Q, stream);
-        case 16: return launch<T, 16>(x, log_a, Bm, Cm, dt, G, out, Bt, L, H, N, Q, stream);
-        case 32: return launch<T, 32>(x, log_a, Bm, Cm, dt, G, out, Bt, L, H, N, Q, stream);
-        case 64: return launch<T, 64>(x, log_a, Bm, Cm, dt, G, out, Bt, L, H, N, Q, stream);
-        case 128: return launch<T, 128>(x, log_a, Bm, Cm, dt, G, out, Bt, L, H, N, Q, stream);
+        case 8: return launch<T, 8>(x, log_a, Bm, Cm, dt, G, out, Bt, L, H, N, Q, NG, stream);
+        case 16: return launch<T, 16>(x, log_a, Bm, Cm, dt, G, out, Bt, L, H, N, Q, NG, stream);
+        case 32: return launch<T, 32>(x, log_a, Bm, Cm, dt, G, out, Bt, L, H, N, Q, NG, stream);
+        case 64: return launch<T, 64>(x, log_a, Bm, Cm, dt, G, out, Bt, L, H, N, Q, NG, stream);
+        case 128:
+            return launch<T, 128>(x, log_a, Bm, Cm, dt, G, out, Bt, L, H, N, Q, NG, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
 }  // namespace
 
-// x [Bt, L, H, P], log_a [Bt, L, H] f32, B / C [Bt, L, N], dt [Bt, L, H] f32,
-// the workspace G [Bt, L / Q, Q, Q] f32, out [Bt, L, H, P]; L a multiple of Q.
-// dtype (of x, B, C and out): 0 = float32, 1 = bfloat16.
+// x [Bt, L, H, P], log_a [Bt, L, H] f32, B / C [Bt, L, NG, N], dt [Bt, L, H] f32,
+// the workspace G [Bt, L / Q, NG, Q, Q] f32, out [Bt, L, H, P]; L a multiple of Q,
+// H of NG.  dtype (of x, B, C and out): 0 = float32, 1 = bfloat16.
 extern "C" int ssd_scan(const void* x, const void* log_a, const void* Bm, const void* Cm,
                         const void* dt, void* G, void* out, int Bt, int L, int H, int P, int N,
-                        int Q, int dtype, void* stream) {
-    if (Bt <= 0 || L <= 0 || H <= 0 || N <= 0 || Q <= 0 || L % Q) return (int)cudaErrorInvalidValue;
-    if (Bt > 65535 || L / Q > 65535) return (int)cudaErrorInvalidConfiguration;
+                        int Q, int NG, int dtype, void* stream) {
+    if (Bt <= 0 || L <= 0 || H <= 0 || N <= 0 || Q <= 0 || NG <= 0 || L % Q || H % NG)
+        return (int)cudaErrorInvalidValue;
+    if ((long long)Bt * NG > 65535 || L / Q > 65535) return (int)cudaErrorInvalidConfiguration;
     const float* la = static_cast<const float*>(log_a);
     const float* d = static_cast<const float*>(dt);
     float* g = static_cast<float*>(G);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return dispatch<float>(x, la, Bm, Cm, d, g, out, Bt, L, H, P, N, Q, s);
+    if (dtype == 0) return dispatch<float>(x, la, Bm, Cm, d, g, out, Bt, L, H, P, N, Q, NG, s);
     if (dtype == 1)
-        return dispatch<__nv_bfloat16>(x, la, Bm, Cm, d, g, out, Bt, L, H, P, N, Q, s);
+        return dispatch<__nv_bfloat16>(x, la, Bm, Cm, d, g, out, Bt, L, H, P, N, Q, NG, s);
     return (int)cudaErrorInvalidValue;
 }

@@ -8,7 +8,13 @@ projections and the scan.
 * :func:`conv_silu_cuda`: the causal conv, ``+ conv_b`` and silu, written
   as contiguous x, B and C (the scan's inputs), with dt and log_a in f32;
 * :func:`gate_norm_cuda`: the D skip, the ``silu(z)`` gate and the out
-  rmsnorm, the input of the output projection.
+  rmsnorm (over each group of ``d_inner / G`` channels where B and C come
+  in G groups), the input of the output projection.
+
+Groups reach the conv as its channel count alone: B and C of G groups are
+``2 G N`` contiguous channels of the input projection, written as ``[B, L,
+G N]`` and viewed as ``[B, L, G, N]``.  A hybrid site's addend is one add
+in the activations' dtype before the input norm.
 
 :func:`mamba_passes_cuda` is the block with them, as ``ref.mamba_passes``
 is the block with the plain passes; it counts its calls in
@@ -26,10 +32,11 @@ is built or imported from CUDA when this module is imported.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from repro_torch.kernels.mamba_passes.ref import ssm_groups
 from repro_torch.kernels.nvcc import CudaLibrary
 from repro_torch.models.common import linear
 from repro_torch.models.config import ModelConfig
@@ -45,7 +52,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mamba_rmsnorm.argtypes = [p, p, p, i, i, f, i, p]
     lib.mamba_conv_silu.argtypes = [p, i] + [p] * 9 + [i] * 7 + [p]
-    lib.mamba_gate_norm.argtypes = [p, p, p, i, p, p, p, i, i, i, f, i, p]
+    lib.mamba_gate_norm.argtypes = [p, p, p, i, p, p, p, i, i, i, i, f, i, p]
     for fn in (lib.mamba_rmsnorm, lib.mamba_conv_silu, lib.mamba_gate_norm):
         fn.restype = ctypes.c_int
 
@@ -124,19 +131,23 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tens
 
 def conv_silu_cuda(zxbcdt: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
                    dt_bias: torch.Tensor, A_log: torch.Tensor, d_inner: int, n_state: int,
-                   n_heads: int):
+                   n_heads: int, n_groups: int = 1):
     """The conv, silu and dt of the input projection ``zxbcdt [B, L, 2
-    d_inner + 2 N + H]`` (columns z, x, B, C, dt), with ``conv_w [W, d_inner +
-    2 N]`` in its dtype and the f32 ``conv_b``, ``dt_bias [H]`` and ``A_log
-    [H]``.  Returns x ``[B, L, d_inner]``, B and C ``[B, L, N]`` in zxbcdt's
-    dtype and dt, log_a ``[B, L, H]`` in f32, each a new contiguous tensor."""
+    d_inner + 2 G N + H]`` (columns z, x, B, C, dt; G = ``n_groups``), with
+    ``conv_w [W, d_inner + 2 G N]`` in its dtype and the f32 ``conv_b``,
+    ``dt_bias [H]`` and ``A_log [H]``.  Returns x ``[B, L, d_inner]``, B and
+    C ``[B, L, N]`` (one group) or ``[B, L, G, N]`` in zxbcdt's dtype and
+    dt, log_a ``[B, L, H]`` in f32, each a new contiguous tensor."""
     name = "conv_silu_cuda"
     ts = {"zxbcdt": zxbcdt, "conv_w": conv_w, "conv_b": conv_b, "dt_bias": dt_bias,
           "A_log": A_log}
     _check(name, ts, zxbcdt.dtype)
     _dtypes(name, zxbcdt.dtype, conv_w=conv_w)
     _dtypes(name, torch.float32, conv_b=conv_b, dt_bias=dt_bias, A_log=A_log)
-    Din, N, H = d_inner, n_state, n_heads
+    Din, H, G = d_inner, n_heads, n_groups
+    if G < 1 or H % G:
+        raise ValueError(f"{name}: the {H} heads are not a multiple of {G} groups")
+    N = G * n_state  # the kernel's B (and C) channels: every group's
     C, width = Din + 2 * N, 2 * Din + 2 * N + n_heads
     if zxbcdt.dim() != 3 or zxbcdt.shape[-1] != width:
         raise ValueError(f"{name}: zxbcdt must be [B, L, {width}] (got {tuple(zxbcdt.shape)})")
@@ -155,8 +166,9 @@ def conv_silu_cuda(zxbcdt: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Ten
     Bsz, L = zxbcdt.shape[:2]
     dev, dtype = zxbcdt.device, zxbcdt.dtype
     x = torch.empty((Bsz, L, Din), dtype=dtype, device=dev)
-    Bm = torch.empty((Bsz, L, N), dtype=dtype, device=dev)
-    Cm = torch.empty((Bsz, L, N), dtype=dtype, device=dev)
+    bc = (Bsz, L, n_state) if G == 1 else (Bsz, L, G, n_state)
+    Bm = torch.empty(bc, dtype=dtype, device=dev)
+    Cm = torch.empty(bc, dtype=dtype, device=dev)
     dt = torch.empty((Bsz, L, H), dtype=torch.float32, device=dev)
     log_a = torch.empty((Bsz, L, H), dtype=torch.float32, device=dev)
     if Bsz * L == 0:
@@ -172,13 +184,15 @@ def conv_silu_cuda(zxbcdt: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Ten
 
 
 def gate_norm_cuda(y: torch.Tensor, x: torch.Tensor, zxbcdt: torch.Tensor, D: torch.Tensor,
-                   scale: torch.Tensor, eps: float, headdim: int) -> torch.Tensor:
-    """``rmsnorm((y + D x) silu(z)) scale`` over each row of d_inner, z the
-    first d_inner columns of ``zxbcdt [B, L, *]``: y the scan's output
-    ``[B, L, H, P]``, x the conv's ``[B, L, d_inner]``, both in zxbcdt's
-    dtype; ``D [H]`` and ``scale [d_inner]`` in f32.  ``y + D x``, ``silu(z)``
-    and their product are rounded to the dtype, as the plain passes round
-    them.  Returns ``[B, L, d_inner]`` in that dtype."""
+                   scale: torch.Tensor, eps: float, headdim: int,
+                   n_groups: int = 1) -> torch.Tensor:
+    """``rmsnorm((y + D x) silu(z)) scale`` over each row of d_inner (or
+    over each of its ``n_groups`` groups of ``d_inner / n_groups``
+    channels), z the first d_inner columns of ``zxbcdt [B, L, *]``: y the
+    scan's output ``[B, L, H, P]``, x the conv's ``[B, L, d_inner]``, both in
+    zxbcdt's dtype; ``D [H]`` and ``scale [d_inner]`` in f32.  ``y + D x``,
+    ``silu(z)`` and their product are rounded to the dtype, as the plain
+    passes round them.  Returns ``[B, L, d_inner]`` in that dtype."""
     name = "gate_norm_cuda"
     ts = {"y": y, "x": x, "zxbcdt": zxbcdt, "D": D, "scale": scale}
     _check(name, ts, zxbcdt.dtype)
@@ -191,7 +205,9 @@ def gate_norm_cuda(y: torch.Tensor, x: torch.Tensor, zxbcdt: torch.Tensor, D: to
     Pd = headdim
     if Pd <= 0 or Din % Pd:
         raise ValueError(f"{name}: d_inner {Din} is not a multiple of the head dim {Pd}")
-    H = Din // Pd
+    H, G = Din // Pd, n_groups
+    if G < 1 or H % G:
+        raise ValueError(f"{name}: the {H} heads are not a multiple of {G} groups")
     _shape(name, y, (Bsz, L, H, Pd), "y")
     _shape(name, D, (H,), "D")
     _shape(name, scale, (Din,), "scale")
@@ -199,9 +215,10 @@ def gate_norm_cuda(y: torch.Tensor, x: torch.Tensor, zxbcdt: torch.Tensor, D: to
         raise ValueError(f"{name}: zxbcdt {tuple(zxbcdt.shape)} does not hold z [{Bsz}, {L}, "
                          f"{Din}]")
     V = _lanes(x.dtype)
-    if Pd % V or Din // V > GATE_MAX_CHUNKS:
-        raise ValueError(f"{name} needs a head dim that is a multiple of {V} and d_inner up to "
-                         f"{GATE_MAX_CHUNKS * V} in {x.dtype} (got {Pd}, {Din})")
+    if Pd % V or Din // G // V > GATE_MAX_CHUNKS:
+        raise ValueError(f"{name} needs a head dim that is a multiple of {V} and groups of "
+                         f"d_inner up to {GATE_MAX_CHUNKS * V} in {x.dtype} (got {Pd}, "
+                         f"{Din // G})")
     out = torch.empty_like(x)
     if Bsz * L == 0:
         return out
@@ -209,27 +226,30 @@ def gate_norm_cuda(y: torch.Tensor, x: torch.Tensor, zxbcdt: torch.Tensor, D: to
     with torch.cuda.device(x.device):
         rc = lib.mamba_gate_norm(y.data_ptr(), x.data_ptr(), zxbcdt.data_ptr(), zxbcdt.shape[-1],
                                  D.data_ptr(), scale.data_ptr(), out.data_ptr(), Bsz * L, Din, Pd,
-                                 eps, _DTYPE_CODES[x.dtype], _stream(x.device))
+                                 G, eps, _DTYPE_CODES[x.dtype], _stream(x.device))
     _launched(name, rc)
     return out
 
 
 def mamba_passes_cuda(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
-                      scan: Callable[..., torch.Tensor]) -> torch.Tensor:
+                      scan: Callable[..., torch.Tensor],
+                      addend: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``ref.mamba_passes`` with the three kernels in place of the plain
     passes: the same projections (spans ``mamba.in_proj``, ``mamba.out_proj``),
-    the same ``scan`` and the same residual add, a plain add in x's dtype."""
+    the same ``scan``, the same ``addend`` (a plain add in x's dtype before
+    the input norm) and the same residual add, a plain add in x's dtype."""
     Bsz, L = x.shape[0], x.shape[1]
-    h = rmsnorm_cuda(x, p["norm"]["scale"], cfg.norm_eps)
+    G = ssm_groups(cfg)
+    h = rmsnorm_cuda(x if addend is None else x + addend, p["norm"]["scale"], cfg.norm_eps)
     with span("mamba.in_proj"):
         zxbcdt = linear(p["in_proj"], h)
     xs, Bm, Cm, dt, log_a = conv_silu_cuda(zxbcdt, p["conv_w"], p["conv_b"], p["dt_bias"],
                                            p["A_log"], cfg.d_inner, cfg.ssm_state,
-                                           cfg.ssm_nheads)
+                                           cfg.ssm_nheads, G)
     y = scan(xs.view(Bsz, L, cfg.ssm_nheads, cfg.ssm_headdim), log_a, Bm, Cm, dt,
              cfg.ssm_chunk)
     y = gate_norm_cuda(y, xs, zxbcdt, p["D"], p["out_norm"]["scale"], cfg.norm_eps,
-                       cfg.ssm_headdim)
+                       cfg.ssm_headdim, G)
     with span("mamba.out_proj"):
         out = linear(p["out_proj"], y)
     mamba_passes_cuda.launches += 1
@@ -244,8 +264,9 @@ def floor_bytes(cfg: ModelConfig, tokens: int, itemsize: int) -> Dict[str, int]:
     (each input read once, each output written once; activations of
     ``itemsize`` bytes, dt and log_a in f32): ``norm``, ``conv`` (the xBC and
     dt columns in; x, B, C, dt and log_a out), ``gate_norm`` (y, x, z in; the
-    out_proj input out) and the residual ``add``."""
-    D, Din, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
+    out_proj input out) and the residual ``add``.  B and C are every
+    group's; a hybrid site's addend is not counted."""
+    D, Din, N, H = cfg.d_model, cfg.d_inner, ssm_groups(cfg) * cfg.ssm_state, cfg.ssm_nheads
     per = {
         "norm": 2 * D * itemsize,
         "conv": (2 * (Din + 2 * N) + H) * itemsize + 2 * H * 4,

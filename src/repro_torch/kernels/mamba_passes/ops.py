@@ -12,13 +12,14 @@ routes a block call on what its inputs show:
 * every other CUDA tensor goes to the kernels (:func:`.kernel.mamba_passes_cuda`),
   which launch or raise.  There is no fallback.
 
-The widths come from the config, so every family whose blocks call
-``mamba_block_apply`` (mamba2, zamba2's hybrid) takes the same route.
+The widths and the B/C groups come from the config, so every family whose
+blocks call ``mamba_block_apply`` (mamba2, the hybrid family, zamba2) takes
+the same route.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -39,9 +40,11 @@ def recording(p: Dict[str, Any], x: torch.Tensor) -> bool:
 
 
 def mamba_passes(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
-                 scan: Callable[..., torch.Tensor]) -> torch.Tensor:
-    """One Mamba block over ``x [B, L, D]`` with ``scan`` as its SSD scan:
-    the plain passes or the kernels, by the rule above."""
+                 scan: Callable[..., torch.Tensor],
+                 addend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One Mamba block over ``x [B, L, D]`` with ``scan`` as its SSD scan
+    (and ``addend`` on the input norm's input, where given): the plain
+    passes or the kernels, by the rule above."""
     if x.device.type in PLAIN_DEVICES or recording(p, x):
-        return ref.mamba_passes(cfg, p, x, scan)
-    return mamba_passes_cuda(cfg, p, x, scan)
+        return ref.mamba_passes(cfg, p, x, scan, addend)
+    return mamba_passes_cuda(cfg, p, x, scan, addend)

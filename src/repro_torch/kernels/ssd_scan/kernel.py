@@ -3,10 +3,12 @@
 The kernel replaces the JAX package's Pallas TPU kernel
 ``kernels/ssd_scan/kernel.py::_ssd_kernel``: the Mamba2 SSD chunked scan.
 A call makes two launches (see the note at the top of the CUDA source):
-``ssd_scan_cb_kernel`` computes C Bᵀ once per (batch row, chunk) into an
-f32 workspace ``[Bt, L/Q, Q, Q]`` (:func:`workspace_shape`), which the
-wrapper allocates; ``ssd_scan_kernel``, one block per (head, batch row),
-walks the chunks in order with the state in shared memory and reads it.
+``ssd_scan_cb_kernel`` computes C Bᵀ once per (batch row, chunk, group of
+B and C) into an f32 workspace ``[Bt, L/Q, G, Q, Q]``
+(:func:`workspace_shape`), which the wrapper allocates; ``ssd_scan_kernel``,
+one block per (head, batch row), walks the chunks in order with the state
+in shared memory and reads its group's.  B and C are ``[Bt, L, N]``,
+shared by every head, or ``[Bt, L, G, N]``, head h reading group h G / H.
 
 The source is compiled with ``nvcc`` at first use into a shared library
 with a plain C interface and loaded with ctypes (:mod:`..nvcc`).
@@ -33,7 +35,7 @@ _TILE = 64  # rows of the kernel's C, B and G tiles
 
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.ssd_scan
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -69,18 +71,18 @@ def smem_bytes(P: int, N: int, Q: int, itemsize: int = 4) -> int:
     return _layout_bytes(P, N, Q, itemsize, ring_stages(P, N, Q, itemsize))
 
 
-def workspace_shape(Bt: int, L: int, Q: int) -> tuple:
+def workspace_shape(Bt: int, L: int, Q: int, G: int = 1) -> tuple:
     """Shape of the f32 workspace that holds C Bᵀ of every (batch row,
-    chunk): ``[Bt, L // Q, Q, Q]`` (only its causal 64 x 64 tiles are
-    written and read)."""
-    return (Bt, L // Q, Q, Q)
+    chunk, group): ``[Bt, L // Q, G, Q, Q]`` (only its causal 64 x 64 tiles
+    are written and read)."""
+    return (Bt, L // Q, G, Q, Q)
 
 
 def ssd_scan_cuda(
     x: torch.Tensor,  # [Bt, L, H, P]
     log_a: torch.Tensor,  # [Bt, L, H]
-    B: torch.Tensor,  # [Bt, L, N]
-    C: torch.Tensor,  # [Bt, L, N]
+    B: torch.Tensor,  # [Bt, L, N] or [Bt, L, G, N]
+    C: torch.Tensor,  # as B
     dt: torch.Tensor,  # [Bt, L, H]
     chunk: int = 256,
 ) -> torch.Tensor:
@@ -88,10 +90,11 @@ def ssd_scan_cuda(
 
     ``x``, ``B`` and ``C`` are float32 or bfloat16, of one dtype;
     ``log_a`` and ``dt`` are cast to float32 (the Pallas kernel's first
-    step).  Checks device, dtypes, shapes, contiguity and ``L % Q == 0``
-    (``Q = min(chunk, L)``), allocates the output and the C Bᵀ workspace,
-    launches both kernels on the current stream without synchronising, and
-    raises if a launch is refused."""
+    step).  B and C hold one group (``[Bt, L, N]``) or G (``[Bt, L, G, N]``,
+    H a multiple of G).  Checks device, dtypes, shapes, contiguity and
+    ``L % Q == 0`` (``Q = min(chunk, L)``), allocates the output and the
+    C Bᵀ workspace, launches both kernels on the current stream without
+    synchronising, and raises if a launch is refused."""
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in (log_a, B, C, dt)):
         raise ValueError(
@@ -106,15 +109,18 @@ def ssd_scan_cuda(
         )
     if not (log_a.is_floating_point() and dt.is_floating_point()):
         raise ValueError(f"log_a and dt must be floating point (got {log_a.dtype}, {dt.dtype})")
-    if x.dim() != 4 or B.dim() != 3:
-        raise ValueError(f"x must be [Bt, L, H, P] and B, C [Bt, L, N] (got {tuple(x.shape)}, "
-                         f"{tuple(B.shape)})")
+    if x.dim() != 4 or B.dim() not in (3, 4):
+        raise ValueError(f"x must be [Bt, L, H, P] and B, C [Bt, L, N] or [Bt, L, G, N] (got "
+                         f"{tuple(x.shape)}, {tuple(B.shape)})")
+    if B.dim() == 3:  # one group, shared by every head
+        B, C = B.unsqueeze(2), C.unsqueeze(2)
     Bt, L, H, P = x.shape
-    N = B.shape[-1]
-    if (tuple(B.shape) != (Bt, L, N) or tuple(C.shape) != (Bt, L, N)
+    G, N = B.shape[2], B.shape[3]
+    if (tuple(B.shape) != (Bt, L, G, N) or tuple(C.shape) != (Bt, L, G, N) or G < 1 or H % G
             or tuple(log_a.shape) != (Bt, L, H) or tuple(dt.shape) != (Bt, L, H)):
         raise ValueError(
-            f"shapes do not match x [Bt, L, H, P] = {tuple(x.shape)}: B {tuple(B.shape)}, "
+            f"shapes do not match x [Bt, L, H, P] = {tuple(x.shape)} (H a multiple of B's groups): "
+            f"B {tuple(B.shape)}, "
             f"C {tuple(C.shape)}, log_a {tuple(log_a.shape)}, dt {tuple(dt.shape)}"
         )
     if P not in HEAD_DIMS:
@@ -138,11 +144,11 @@ def ssd_scan_cuda(
     lib = load()
     with torch.cuda.device(dev):
         # from the caching allocator (under CUDA-graph capture, the graph's own pool)
-        cb = torch.empty(workspace_shape(Bt, L, Q), dtype=torch.float32, device=dev)
+        cb = torch.empty(workspace_shape(Bt, L, Q, G), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ssd_scan(
             x.data_ptr(), log_a.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(),
-            cb.data_ptr(), out.data_ptr(), Bt, L, H, P, N, Q, _DTYPE_CODES[x.dtype], stream,
+            cb.data_ptr(), out.data_ptr(), Bt, L, H, P, N, Q, G, _DTYPE_CODES[x.dtype], stream,
         )
     if rc != 0:
         raise RuntimeError(f"ssd_scan launch failed: cudaError {rc}")

@@ -74,7 +74,8 @@ class SSDScan(torch.autograd.Function):
 
 def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
              dt: torch.Tensor, chunk: int = 256) -> torch.Tensor:
-    """x [Bt, L, H, P], log_a / dt [Bt, L, H], B / C [Bt, L, N] -> y [Bt, L, H, P].
+    """x [Bt, L, H, P], log_a / dt [Bt, L, H], B / C [Bt, L, N] (shared by every
+    head) or [Bt, L, G, N] (head h reads group h G / H) -> y [Bt, L, H, P].
 
     The span ``ssd_scan`` holds the route that computes the scan, whichever
     it is; the copies of the model's views into contiguous tensors lie

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.launch.mesh import AX_DATA, AX_MODEL  # noqa: F401 (re-exported)
+from repro_torch.spans import span
 from repro_torch.tree import tree_leaves
 
 Params = Dict[str, Any]
@@ -159,6 +160,7 @@ def flash_attention(
     causal: bool = True,
     q_chunk: int = 512,
     k_chunk: int = 1024,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Chunked online-softmax attention with GQA, bounded memory.
 
@@ -167,7 +169,14 @@ def flash_attention(
     query rows sliced off).  The JAX package's ``lax.map`` over query
     chunks and ``lax.scan`` over key chunks are Python loops here; ``m``,
     ``l`` and ``acc`` are f32, and every block is computed, the ones
-    above the causal diagonal too, as in JAX."""
+    above the causal diagonal too, as in JAX.  ``scale`` multiplies the
+    scores: None is 1/sqrt(Dh); zamba2 passes (Dh/2)^-1/2.  The whole call
+    is the span ``flash_attention`` (a flag check with no profiler)."""
+    with span("flash_attention"):
+        return _flash_attention(q, k, v, causal, q_chunk, k_chunk, scale)
+
+
+def _flash_attention(q, k, v, causal, q_chunk, k_chunk, scale):
     B, Lq0, H, Dh = q.shape
     _, Lk0, Hkv, _ = k.shape
     G = H // Hkv
@@ -181,7 +190,7 @@ def flash_attention(
         k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
         v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
     Lq, Lk = Lq0 + pad_q, Lk0 + pad_k
-    scale = float(1.0 / np.sqrt(Dh))
+    scale = float(1.0 / np.sqrt(Dh)) if scale is None else float(scale)
     pos = torch.arange(max(Lq, Lk), device=q.device)
     out = torch.empty((B, Lq, H, Dh), dtype=q.dtype, device=q.device)
     for q0 in range(0, Lq, q_chunk):

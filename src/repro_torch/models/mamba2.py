@@ -8,7 +8,11 @@ per head h with state size N and head dim P:
 
 ``ssd_naive`` is the step-by-step oracle; ``ssd_chunked`` is the plain
 O(L * Q) blocked algorithm (intra-chunk quadratic term + inter-chunk state
-recurrence), the chunk loop a Python loop where JAX scans.  The model's
+recurrence), the chunk loop a Python loop where JAX scans.  Both take B and
+C shared by every head (``[Bt, L, N]``, the JAX package's one group) or in
+G groups (``[Bt, L, G, N]``, zamba2's ``mamba_ngroups``), head h reading
+group h G / H: each group's heads are then scanned with that group's B and
+C, so one group gives exactly the shared-B/C result.  The model's
 prefill and training forward (:func:`mamba_block_apply`) call
 ``kernels.ssd_scan.ops.ssd_scan``, which sends a CUDA tensor to the
 hand-written kernel (under autograd, with the plain version's gradient)
@@ -32,13 +36,13 @@ sharding trees as data, keyed as the port's trees (see
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_passes.ops import mamba_passes
-from repro_torch.kernels.mamba_passes.ref import split_in_proj, ssm_from_xbc
+from repro_torch.kernels.mamba_passes.ref import conv_channels, split_in_proj, ssm_from_xbc
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.common import (
     chunked_softmax_xent,
@@ -63,9 +67,29 @@ Params = Dict[str, Any]
 # ------------------------------------------------------------------ SSD -----
 
 
+def by_group(scan, x, log_a, B, C, dt, *args):
+    """``scan`` with B and C shared by every head (``[Bt, L, N]``) as it is;
+    with B and C in G groups (``[Bt, L, G, N]``, H a multiple of G) over each
+    group's H / G heads with that group's B and C, the outputs joined along
+    the heads.  One group is ``scan`` on the whole tensors."""
+    if B.dim() == 3:
+        return scan(x, log_a, B, C, dt, *args)
+    G, H = B.shape[2], x.shape[2]
+    if C.shape != B.shape or H % G:
+        raise ValueError(f"B {tuple(B.shape)} and C {tuple(C.shape)} must be [Bt, L, G, N] "
+                         f"with the {H} heads a multiple of G")
+    hg = H // G
+    ys = [scan(x[:, :, g * hg:(g + 1) * hg], log_a[..., g * hg:(g + 1) * hg], B[:, :, g],
+               C[:, :, g], dt[..., g * hg:(g + 1) * hg], *args) for g in range(G)]
+    return ys[0] if G == 1 else torch.cat(ys, dim=2)
+
+
 def ssd_naive(x, log_a, B, C, dt):
     """Sequential oracle.  x: [Bt, L, H, P]; log_a: [Bt, L, H];
-    B, C: [Bt, L, N]; dt: [Bt, L, H] -> y: [Bt, L, H, P] (f32)."""
+    B, C: [Bt, L, N] or [Bt, L, G, N] (:func:`by_group`); dt: [Bt, L, H]
+    -> y: [Bt, L, H, P] (f32)."""
+    if B.dim() == 4:
+        return by_group(ssd_naive, x, log_a, B, C, dt)
     Bt, L, H, Pd = x.shape
     N = B.shape[-1]
     x, log_a, B, C, dt = (t.float() for t in (x, log_a, B, C, dt))
@@ -91,6 +115,8 @@ def _segsum(log_a):
 def ssd_chunked(x, log_a, B, C, dt, chunk: int):
     """Blocked SSD (paper Listing 1 semantics), in f32, cast to x's dtype.
     Shapes as :func:`ssd_naive`."""
+    if B.dim() == 4:
+        return by_group(ssd_chunked, x, log_a, B, C, dt, chunk)
     Bt, L, H, Pd = x.shape
     N = B.shape[-1]
     Q = min(chunk, L)
@@ -143,10 +169,10 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype)
     ``A_log = log(linspace(1, 16, H))`` is computed in float64 and rounded
     once to f32 (XLA's f32 ``linspace`` and ``log`` differ from the
     correctly rounded values by a few ulp)."""
-    D, Din, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads
+    D, Din, H = cfg.d_model, cfg.d_inner, cfg.ssm_nheads
     dev = gen.device
-    conv_ch = Din + 2 * N
-    d_in_proj = 2 * Din + 2 * N + H
+    conv_ch = conv_channels(cfg)  # x, and B and C of every group
+    d_in_proj = Din + conv_ch + H
     conv_w = torch.randn((cfg.ssm_conv_width, conv_ch), generator=gen,
                          dtype=torch.float32, device=dev)
     return {
@@ -166,25 +192,27 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype)
     }
 
 
-def mamba_block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """One block over a whole sequence, x: [B, L, D] -> [B, L, D].  Spans
+def mamba_block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                      addend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One block over a whole sequence, x: [B, L, D] -> [B, L, D]:
+    ``x + mixer(rmsnorm(x))``, or ``x + mixer(rmsnorm(x + addend))`` where
+    zamba2's shared block hands an ``addend``.  Spans
     ``mamba.block`` around it, ``mamba.in_proj`` and ``mamba.out_proj``
     around its projections; the scan's own is ``ssd_scan``'s.  Its passes
     are ``kernels.mamba_passes.ops``'s: the plain ones (the CPU, ``meta``,
     and training under autograd) or the fused kernels (a CUDA tensor with
     grad off), around :func:`ssd_scan`."""
     with span("mamba.block"):
-        return mamba_passes(cfg, p, x, ssd_scan)
+        return mamba_passes(cfg, p, x, ssd_scan, addend)
 
 
 # -------------------------------------------------------------- decode ------
 
 
 def mamba_init_state(cfg: ModelConfig, batch: int, device: torch.device) -> Params:
-    Din, N, H, Pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
-    conv_ch = Din + 2 * N
+    N, H, Pd = cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
     return {
-        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, conv_ch),
+        "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, conv_channels(cfg)),
                             dtype=dtype_of(cfg.dtype), device=device),
         "ssm": torch.zeros((batch, H, N, Pd), dtype=torch.float32, device=device),
     }

@@ -2,8 +2,9 @@
 
 Port of the JAX package's ``models/model_api.py``.  ``build_model(cfg,
 device)`` returns a :class:`Model` bundle for every family of the
-registry (dense, moe, ssm, hybrid, encdec, vlm), with the entry points
-the trainer and the serving loop share:
+registry (dense, moe, ssm, hybrid, encdec, vlm) and for the port-only
+zamba2 (``configs.port_only``; no decode, no sharding specs), with the
+entry points the trainer and the serving loop share:
 
   init(generator) -> params                  (weights drawn on the generator's device)
   loss(params, batch) -> scalar              (training objective, f32)
@@ -37,7 +38,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import AX_DATA
 from repro_torch.launch.mesh import PartitionSpec as P
-from repro_torch.models import hybrid, mamba2, moe, transformer, vlm, whisper
+from repro_torch.models import hybrid, mamba2, moe, transformer, vlm, whisper, zamba2
 from repro_torch.models.common import dtype_of
 from repro_torch.models.config import ModelConfig
 from repro_torch.spans import span
@@ -95,6 +96,8 @@ class Model:
                 return mamba2.ssm_prefill(cfg, params, tokens)
             if fam == "hybrid":
                 return hybrid.hybrid_prefill(cfg, params, tokens)
+            if fam == "zamba2":
+                return zamba2.zamba2_prefill(cfg, params, tokens)
             if fam == "encdec":
                 return whisper.encdec_prefill(cfg, params, batch["frames"], tokens)
             raise ValueError(fam)
@@ -169,6 +172,8 @@ FAMILIES = {
     "encdec": (whisper.init_encdec_model, whisper.encdec_loss, whisper.encdec_init_cache,
                whisper.encdec_decode_step, whisper.encdec_param_specs,
                whisper.encdec_cache_specs),
+    "zamba2": (zamba2.init_zamba2_model, zamba2.zamba2_loss, zamba2.zamba2_init_cache,
+               zamba2.zamba2_decode_step, zamba2.zamba2_param_specs, zamba2.zamba2_cache_specs),
 }
 
 

@@ -10,18 +10,22 @@ costs ten.  Nothing turns the spans on but a running profiler.
 
 The spans and where they sit:
 
-=====================  ==================================================
-``model.prefill``      ``models.model_api.Model.prefill``, any family
-``model.loss``         ``optim.adamw.make_train_step``: the forward
-``mamba.block``        ``models.mamba2.mamba_block_apply`` (and remat's
-                       recompute of it)
-``mamba.in_proj``,     the block's two projections
+=========================  ==================================================
+``model.prefill``          ``models.model_api.Model.prefill``, any family
+``model.loss``             ``optim.adamw.make_train_step``: the forward
+``mamba.block``            ``models.mamba2.mamba_block_apply`` (and remat's
+                           recompute of it)
+``mamba.in_proj``,         the block's two projections
 ``mamba.out_proj``
-``ssd_scan``           ``kernels.ssd_scan.ops.ssd_scan``, whatever route
-                       computes the scan
-``ssd_scan.backward``  ``kernels.ssd_scan.ops.SSDScan.backward``
-``adamw.update``       ``optim.adamw.adamw_update``
-=====================  ==================================================
+``ssd_scan``               ``kernels.ssd_scan.ops.ssd_scan``, whatever route
+                           computes the scan
+``ssd_scan.backward``      ``kernels.ssd_scan.ops.SSDScan.backward``
+``adamw.update``           ``optim.adamw.adamw_update``
+``zamba2.shared_block``    ``models.zamba2.shared_block``: a whole hybrid
+                           site (concat, norms, attention, MLP, adapter, the
+                           site's linear)
+``flash_attention``        ``models.common.flash_attention``, any family
+=========================  ==================================================
 """
 
 from __future__ import annotations

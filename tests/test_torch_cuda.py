@@ -48,6 +48,13 @@ runs on a machine that has only torch:
   prefill on the fused route equal to the plain route's, with
   ``mamba_passes_cuda.launches`` up by n_layers a prefill and not at all in
   a training step;
+* B and C in groups: the SSD kernel with G groups against the plain
+  ``ssd_chunked`` at small, ragged and zamba2-7b's prefill shape (collapsed
+  groups read far outside), one group bit-equal to the shared-B/C call, the
+  pass kernels at zamba2-7b's block (two groups) with the tolerances above,
+  the wrappers refusing heads that are not whole groups; a tiny zamba2 of
+  the port-only family prefilling on the card through both kernels, one
+  shared-block call a site, equal to the plain passes and to the CPU;
 * a reduced zamba2 (heads of 80) prefilling and decoding on the card
   through both kernels, equal to the CPU, and raising where the decode
   kernel refuses its head shape (no fallback); a reduced whisper, llava,
@@ -727,7 +734,7 @@ def _to_card(tree, card):
 
 # ------------------------------------------------ the Mamba block's passes ---
 
-PASS_ARCHS = ("mamba2-1.3b", "zamba2-2.7b")
+PASS_ARCHS = ("mamba2-1.3b", "zamba2-2.7b", "zamba2-7b")  # zamba2-7b: two B/C groups
 PASS_ULPS = 4  # kernels vs the plain passes in bf16: ulps of max|ref|
 
 
@@ -738,10 +745,12 @@ def _pass_block(card, arch, B, L, dtype=torch.bfloat16, seed=0):
     output, all drawn from ``seed``."""
     import dataclasses
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs.port_only import get_port_config
     from repro_torch.models.mamba2 import init_mamba_block
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=1, dtype=str(dtype).split(".")[-1])
+    cfg = dataclasses.replace((get_config if arch in ARCHS else get_port_config)(arch),
+                              n_layers=1, dtype=str(dtype).split(".")[-1])
     gen = torch.Generator(device=card).manual_seed(seed)
     p = init_mamba_block(gen, cfg, dtype)
 
@@ -816,12 +825,14 @@ def _fused_outputs(cfg, p, x, y, plain):
     from repro_torch.kernels.mamba_passes.kernel import (
         conv_silu_cuda, gate_norm_cuda, rmsnorm_cuda,
     )
+    from repro_torch.kernels.mamba_passes.ref import ssm_groups
 
+    G = ssm_groups(cfg)
     h = rmsnorm_cuda(x, p["norm"]["scale"], cfg.norm_eps)
     conv = conv_silu_cuda(plain["zxbcdt"], p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"],
-                          cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads)
+                          cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, G)
     g = gate_norm_cuda(y, plain["conv"][0], plain["zxbcdt"], p["D"], p["out_norm"]["scale"],
-                       cfg.norm_eps, cfg.ssm_headdim)
+                       cfg.norm_eps, cfg.ssm_headdim, G)
     return dict(h=h, conv=list(conv), g=g)
 
 
@@ -844,7 +855,8 @@ def test_mamba_pass_kernels_match_the_plain_passes(card, monkeypatch, arch, B, L
         torch.testing.assert_close(a, b, rtol=2e-6, atol=1e-7)
 
 
-@pytest.mark.parametrize("arch,B,L", [("mamba2-1.3b", 3, 257), ("zamba2-2.7b", 1, 4096)])
+@pytest.mark.parametrize("arch,B,L", [("mamba2-1.3b", 3, 257), ("zamba2-2.7b", 1, 4096),
+                                      ("zamba2-7b", 1, 4096)])
 def test_mamba_pass_kernels_in_f32(card, monkeypatch, arch, B, L):
     """f32 activations: every output within 1e-5 of max|ref| (the same f32
     arithmetic in another summation order)."""
@@ -997,6 +1009,125 @@ def test_mamba_passes_counter_rises_a_prefill_and_stays_in_training(card):
     torch.autograd.grad(loss, leaves)
     assert mamba_passes_cuda.launches == before + cfg.n_layers
     assert ssd_scan_cuda.launches == ssd + 2 * cfg.n_layers
+
+
+# ------------------------------------------- B/C in groups, and zamba2-7b ---
+
+GROUPED_SSD = [  # (Bt, L, H, P, N, Q, G): small, ragged rows, and zamba2-7b's prefill shape
+    (2, 64, 4, 8, 16, 16, 2), (1, 128, 8, 64, 64, 32, 4), (1, 30, 6, 16, 12, 6, 3),
+    (2, 512, 4, 64, 128, 256, 2), (8, 4096, 112, 64, 64, 256, 2),
+]
+
+
+def _grouped_ssd_inputs(card, Bt, L, H, Pd, N, G, seed):
+    x, la, B, C, dt = _ssd_inputs(card, Bt, L, H, Pd, G * N, seed)
+    return x, la, B.view(Bt, L, G, N), C.view(Bt, L, G, N), dt
+
+
+@pytest.mark.parametrize("Bt,L,H,Pd,N,Q,G", GROUPED_SSD)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_ssd_kernel_matches_plain_version(card, Bt, L, H, Pd, N, Q, G, dtype):
+    """B and C ``[Bt, L, G, N]``: one kernel call (each head reading its
+    group) against the plain ``ssd_chunked`` (each group's heads with their B
+    and C); f32 within 1e-5 of max|ref| (1e-4 at the prefill shape: the
+    cumsum of 256 log-decays in another order), bf16 output 2e-2; B and C
+    collapsed to the first group read far outside."""
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    x, la, B, C, dt = _grouped_ssd_inputs(card, Bt, L, H, Pd, N, G, L + G)
+    x, B, C = x.to(dtype), B.to(dtype), C.to(dtype)
+    before = ssd_scan_cuda.launches
+    got = ssd_scan(x, la, B, C, dt, Q)
+    assert ssd_scan_cuda.launches == before + 1
+    plain = ssd_chunked(x, la, B, C, dt, Q)
+    torch.cuda.synchronize()
+    assert got.shape == plain.shape and got.dtype == dtype
+    tol = 2e-2 if dtype == torch.bfloat16 else (1e-4 if L >= 4096 else 1e-5)
+    assert _rel(got, plain) < tol
+    one = ssd_chunked(x, la, B[:, :, :1].expand_as(B), C[:, :, :1].expand_as(C), dt, Q)
+    assert _rel(got, one) > 10 * tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_with_one_group_is_the_shared_kernel_bit_for_bit(card, dtype):
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+    x, la, B, C, dt = _ssd_inputs(card, 2, 512, 4, 64, 128, 9)
+    x, B, C = x.to(dtype), B.to(dtype), C.to(dtype)
+    shared = ssd_scan_cuda(x, la, B, C, dt, 256)
+    assert torch.equal(ssd_scan_cuda(x, la, B[:, :, None], C[:, :, None], dt, 256), shared)
+
+
+def test_grouped_wrappers_reject_heads_not_in_whole_groups(card):
+    from repro_torch.kernels.mamba_passes.kernel import (
+        conv_silu_cuda, gate_norm_cuda, mamba_passes_cuda,
+    )
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+
+    x, la, B, C, dt = _grouped_ssd_inputs(card, 1, 32, 4, 16, 8, 3, 1)
+    before = ssd_scan_cuda.launches
+    with pytest.raises(ValueError, match="multiple of B's groups"):
+        ssd_scan_cuda(x, la, B, C, dt, 16)
+    assert ssd_scan_cuda.launches == before
+    cfg, p, xs, y = _pass_block(card, "zamba2-7b", 1, 8)  # 112 heads
+    z = torch.zeros((1, 8, 2 * cfg.d_inner + 4 * cfg.ssm_state + cfg.ssm_nheads),
+                    dtype=torch.bfloat16, device=card)
+    xi = torch.zeros((1, 8, cfg.d_inner), dtype=torch.bfloat16, device=card)
+    before = mamba_passes_cuda.launches
+    with pytest.raises(ValueError, match="multiple of 3 groups"):
+        conv_silu_cuda(z, p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"], cfg.d_inner,
+                       cfg.ssm_state, cfg.ssm_nheads, 3)
+    with pytest.raises(ValueError, match="multiple of 3 groups"):
+        gate_norm_cuda(y, xi, z, p["D"], p["out_norm"]["scale"], cfg.norm_eps, cfg.ssm_headdim, 3)
+    assert mamba_passes_cuda.launches == before
+
+
+def _tiny_zamba2(dtype):
+    import dataclasses
+
+    from repro_torch.configs.port_only import get_port_config
+
+    return dataclasses.replace(
+        get_port_config("zamba2-7b"), dtype=dtype, n_layers=7, d_model=64, n_heads=4,
+        n_kv_heads=4, head_dim=32, d_ff=96, vocab_size=96, ssm_state=16, ssm_headdim=16,
+        ssm_chunk=16, hybrid_layer_ids=(1, 3, 4, 6), adapter_rank=8, attn_q_chunk=16,
+        attn_k_chunk=32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zamba2_prefill_on_the_card_goes_through_the_kernels(card, monkeypatch, dtype):
+    """A tiny zamba2 (two B/C groups, four sites over two shared blocks):
+    its prefill on the card launches the SSD kernel and the fused passes once
+    a Mamba block and counts one shared-block call a site; it equals the
+    plain passes on the card (``ops.PLAIN_DEVICES`` widened) and, in f32, the
+    CPU's prefill (tests/test_model_consistency.py's atol 2e-4, rtol 2e-3);
+    bf16 within 2e-2 of max|ref| (the conv's bf16 rounding points, through
+    seven layers)."""
+    from repro_torch.kernels.mamba_passes import ops
+    from repro_torch.kernels.mamba_passes.kernel import mamba_passes_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.models import zamba2
+    from repro_torch.models.model_api import build_model
+
+    cfg = _tiny_zamba2(dtype)
+    model = build_model(cfg, card)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 4 * cfg.ssm_chunk), dtype=np.int64)).to(card)
+    counts = (mamba_passes_cuda.launches, ssd_scan_cuda.launches, zamba2.shared_block.calls)
+    got = model.prefill(params, {"tokens": toks})
+    assert (mamba_passes_cuda.launches, ssd_scan_cuda.launches, zamba2.shared_block.calls) == (
+        counts[0] + cfg.n_layers, counts[1] + cfg.n_layers, counts[2] + cfg.n_sites)
+    monkeypatch.setattr(ops, "PLAIN_DEVICES", ("cpu", "meta", "cuda"))
+    want = model.prefill(params, {"tokens": toks})
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-3)
+        host = build_model(cfg, "cpu").prefill(_to_cpu(params), {"tokens": toks.cpu()})
+        torch.testing.assert_close(got.cpu(), host, atol=2e-4, rtol=2e-3)
+    else:
+        assert _rel(got, want) <= 2e-2
 
 
 def test_zamba2_prefill_and_decode_on_the_card_go_through_both_kernels(card):

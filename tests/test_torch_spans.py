@@ -66,7 +66,8 @@ def _children(got, parents, i):
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
 def test_prefill_spans_nest(arch):
     """One ``model.prefill`` holding one ``mamba.block`` a Mamba layer,
-    each holding exactly its two projections and its scan, in order."""
+    each holding exactly its two projections and its scan, in order, and
+    one ``flash_attention`` a hybrid's attention site."""
     cfg, model, params = _model(arch)
     _, got, parents = _recorded(lambda: model.prefill(params, {"tokens": _batch(cfg)["tokens"]}))
     names = [g[2] for g in got]
@@ -76,7 +77,11 @@ def test_prefill_spans_nest(arch):
     assert all(names[parents[i]] == "model.prefill" for i in blocks)
     for i in blocks:
         assert _children(got, parents, i) == BLOCK_CHILDREN
-    assert set(names) == {"model.prefill", "mamba.block", *BLOCK_CHILDREN}
+    sites = [i for i, n in enumerate(names) if n == "flash_attention"]
+    want_sites = cfg.n_layers // cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
+    assert len(sites) == want_sites and all(names[parents[i]] == "model.prefill" for i in sites)
+    assert set(names) == {"model.prefill", "mamba.block", *BLOCK_CHILDREN} | (
+        {"flash_attention"} if want_sites else set())
 
 
 def test_train_step_spans():

@@ -19,7 +19,8 @@ in f32, sums in f32.
   at its four SSD shapes, and within chip_smoke.py's 1e-4 at a chunk of the
   prefill's widths (Q=256, N=128, P=64).  One TF32 product (``hi*hi``)
   misses 1e-4 at the same shapes: why the kernel takes three.
-* ``smem_bytes`` at every ``chip_smoke.SSD_SHAPES`` entry, within the
+* ``smem_bytes`` at every ``chip_smoke.SSD_SHAPES`` and
+  ``SSD_GROUPED_SHAPES`` entry, within the
   227 KB a block may use with two buffers a copy ring; and every shape the
   CUDA-core kernel before it took, with one buffer a ring where two do not
   fit (all but some P = 128 shapes with padded rows).
@@ -161,10 +162,12 @@ def test_emulation_in_f32_products_is_the_blocked_algorithm():
     assert _rel(emulate(*ins, 32, torch.matmul), ssd_naive(*ins)) < 2e-6
 
 
-@pytest.mark.parametrize("shape", _chip_smoke().SSD_SHAPES)
+@pytest.mark.parametrize("shape", _chip_smoke().SSD_SHAPES
+                         + [s[:6] for s in _chip_smoke().SSD_GROUPED_SHAPES])
 def test_shared_memory_at_every_smoke_shape(shape):
     """Every shape the smoke run checks fits one block in f32 and in bf16
-    with two buffers a copy ring, so its copies overlap the products."""
+    with two buffers a copy ring, so its copies overlap the products (a
+    block reads one group's B and C, so the groups do not enter)."""
     Bt, L, H, Pd, N, Q = shape
     Q = min(Q, L)
     for itemsize in (4, 2):
