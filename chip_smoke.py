@@ -107,7 +107,7 @@ Phases, each on lines of its own; any failure exits non-zero:
    prompts of L=4096 tokens drawn from a numpy seed (``prefill_32k``,
    B=32 L=32768, cut to B=8 L=4096).  The SSD kernel must run exactly 48
    times, and so must the Mamba passes' kernels (``mamba_passes_cuda``,
-   one count a block call: grad is off).  The same prefill is replayed
+   one count a block call: grad is off); the flash kernel not at all.  The same prefill is replayed
    with ``ssd_scan`` swapped for the plain ``ssd_chunked``, and once more with a planted fault (the kernel
    with the state dropped at every chunk boundary, so no inter-chunk
    C S term); the last-position logits of each are read against the
@@ -132,6 +132,16 @@ Phases, each on lines of its own; any failure exits non-zero:
    block's own inputs within 4 bf16 ulps of max|ref| (dt and log_a, f32,
    within 2e-6); a block call through ``ops.mamba_passes`` with grad off
    counts one, and one under autograd none;
+   (iii.c) the prefill attention kernel (``flash_attn_row``) at zamba2-7b's
+   site (B=8, L=4096, 32 heads of 224, causal, scale (Dh/2)^-1/2), bf16:
+   one launch through ``common.flash_attention`` with grad off, held to
+   the plain ``common._flash_attention`` on the same inputs, each output
+   row within four bf16 ulps of its own max|ref|, timed (CUDA events)
+   beside its bound (the causal products at the bf16 peak), the plain
+   route and ``scaled_dot_product_attention`` (a yardstick the port never
+   calls); a build with a planted fault (the middle tile of keys left out
+   of rows that read 32 tiles or more) read above four times that limit;
+   in f32 on two rows within 1e-5 of each row's max|ref|;
    (iv) ssm decode: ``serve.decode`` of the same model, B=8, 256 greedy
    tokens: no SSD or decode-attention launch (the recurrent step uses
    no kernel); ms/token, tokens/s, and under ``torch.profiler`` over 64
@@ -145,13 +155,14 @@ Phases, each on lines of its own; any failure exits non-zero:
    (vii) after (iv), once the mamba2 weights are freed: (h) dense
    prefill, ``serve.load`` of ``llama3.2-1b`` at its published widths in
    bf16 and ``model.prefill`` on B=8 prompts of 4096 tokens
-   (``prefill_32k`` cut as (iii) is), which launches no kernel of the
-   port (attention is ``flash_attention``, a torch function like the JAX
-   package's ``lax`` one); ms, prompt tokens/s, peak memory, and under
-   ``torch.profiler`` the busy share and attention's share of device time
-   (the ``flash_attention`` calls of a prefill replayed alone), with one
-   call timed beside ``scaled_dot_product_attention`` on the same inputs
-   (a yardstick the port never calls).  In f32 on the same weights: two
+   (``prefill_32k`` cut as (iii) is), which launches the flash kernel once
+   a layer and no other kernel of the port; ms, prompt tokens/s, peak
+   memory, and under ``torch.profiler`` the busy share and attention's
+   share of device time (the flash kernels in the prefill's trace, read
+   where it holds each launch), every call held to the plain route on its own
+   inputs (four bf16 ulps of each row's max|ref|), the first timed through the kernel, the
+   plain route and ``scaled_dot_product_attention`` (a yardstick the port
+   never calls) beside its bound.  In f32 on the same weights: two
    prompts against a replay through ``naive_attention``, last logits
    within 1e-4 of max|ref| (summation order only), and ``decode_step``
    token by token through the decode kernel against ``model.prefill`` on
@@ -160,7 +171,8 @@ Phases, each on lines of its own; any failure exits non-zero:
    at its published widths in bf16 (54 Mamba2 blocks, d_model 2560,
    d_inner 5120, 80 heads of 64, N=64, chunk 256; one shared attention
    block of 32 heads of 80 at 9 sites; d_ff 10240; vocab 32000), B=8 prompts
-   of 4096: the SSD kernel must run exactly 54 times and nothing else;
+   of 4096: the SSD kernel and the pass kernels must run exactly 54 times,
+   the flash kernel 9 times, and nothing else;
    the bf16 replay with the plain ``ssd_chunked`` is read, and the f32
    one on two prompts held to 1e-4 of max|ref| and rms|ref| as in (iii);
    the same readings as (h), the SSD kernel's share too.  (j) its
@@ -196,8 +208,11 @@ Phases, each on lines of its own; any failure exits non-zero:
    block; 128 experts of 5120 x 8192, top-1; 40 heads over 8 of 128) and (n)
    ``qwen3-moe-235b-a22b`` cut to 2 of 94 layers (128 experts of 4096 x
    1536, top-8; 64 heads over 4 of 128): prefill of B=8 prompts of 4096,
-   then 64 tokens as (l).  Each prefill launches no kernel of the port, each
-   decode exactly (sites x steps) decode-kernel launches and nothing else.
+   then 64 tokens as (l).  Each prefill launches the flash kernel once an
+   attention site (whisper: its encoder's layers once, its decoder's twice)
+   and no other kernel of the port, every call held to the plain route as
+   in (h); each decode exactly (sites x steps) decode-kernel launches and
+   nothing else.
    Held: every replayed step, from the kernel run's own state, once through
    the kernel (every attention site within 2e-2 max|ref| of the plain
    version on its inputs) and once through the plain attention with the
@@ -211,8 +226,9 @@ Phases, each on lines of its own; any failure exits non-zero:
    (whisper: 448 tokens after the frames' cross K/V; the moe cells with a
    capacity factor of E/K, so that no path drops a token) within
    ``2e-4 + 2e-3 |ref|``.  Read: ms a prefill, prompt positions/s, peak
-   memory, busy share, attention's and the MoE layers' shares of device
-   time (their calls replayed alone), one attention call beside
+   memory, busy share, attention's share of device time (its kernels in
+   the prefill's trace) and the MoE layers' (their calls replayed alone),
+   one attention call beside
    ``scaled_dot_product_attention``; ms a token, tokens/s, device ops a
    step, busy share and the kernel's share over the first 32 (moe: 16)
    profiled steps;
@@ -416,6 +432,23 @@ MOE_CELLS = [
 # each attention site of a replayed step: the kernel against the plain version on
 # the same inputs, max|d| <= 2e-2 max|ref| (section 2's bf16 kernel limit)
 SITE_TOL = 2e-2
+# every prefill attention call of phases (vii) and (viii), the flash kernel against
+# the plain common._flash_attention on the call's own inputs, each output row (one
+# query of one head) against its own max|ref| (``_row_rel``: rows that see many keys
+# are a few hundredths where the first rows are near one): four bf16 ulps (2^-8 of
+# the row's max|ref| each; P is rounded to bf16 against other running maxima, the
+# plain route rounds each chunk's P·V, both round the output), f32 another summation
+# order (tests/test_torch_cuda.py's limits)
+FLASH_TOL = {"bfloat16": 4 * 2.0**-8, "float32": 1e-5}
+# a planted fault of phase (iii.c) that the first rows cannot show: a warpgroup of
+# the bf16 kernel that reads 32 tiles of keys or more leaves out its middle one; it
+# must read above FLASH_FAULT_TIMES x the limit
+FLASH_MIDDLE_TILE = ("        if (j < mine) {",
+                     "        if (j < mine && (mine < 32 || j != mine / 2)) {")
+FLASH_FAULT_TIMES = 4
+# the flash kernel's row: zamba2-7b's attention site (B=8, L=4096, 32 heads of 224,
+# causal, scale (Dh/2)^-1/2), bf16
+FLASH_SITE = dict(B=8, L=4096, H=32, Dh=224)
 # (ix) training at the published widths and depths through launch.train.run:
 # bf16 weights, f32 AdamW moments, remat "full", random weights of seed 0, no
 # checkpoint (ckpt_every past the last step).  train_4k (B=256, L=4096) cut to
@@ -626,7 +659,10 @@ def device_activity(torch, fn):
     copies) that ``torch.profiler`` records over one call of ``fn``,
     summed by name.  The raw event list is read rather than
     ``prof.events()``, whose per-event tree building takes minutes at the
-    engine's millions of launches."""
+    engine's millions of launches.  Once the process has profiled a session
+    of very many launches, the profiler loses the last records of each
+    later session (PERF.md section 7): read a kernel where others follow
+    it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1096,13 +1132,54 @@ def fault_lane(torch, report):
         say(f"[faults] device ops an iteration faulted / fault-free: {out['ops_ratio']:.3f}")
 
 
+def _max_rel(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def _row_rel(got, ref):
+    """Max over the output rows (the last dim is the head dim) of
+    max|d_row| / max|ref_row|."""
+    d = (got.float() - ref.float()).abs().amax(-1)
+    return (d / ref.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def _attention_bound(q, k, causal):
+    """(ms, what bounds it) of one attention call at the card's peak: the
+    products of the (query, key) pairs it computes (each query's keys up to
+    its own position where causal) at the dtype's tensor rate, or q, k, v
+    and the output read and written once at the HBM rate."""
+    B, Lq, H, Dh = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    pairs = Lq * Lk
+    if causal:
+        seen = min(Lq, Lk)
+        pairs = seen * (seen + 1) // 2 + (Lq - seen) * Lk
+    flops = 4 * B * H * Dh * pairs
+    nbytes = (2 * B * Lq * H + 2 * B * Lk * Hkv) * Dh * q.element_size()
+    return bound(nbytes / HBM_BPS * 1e3, flops / PEAK[str(q.dtype).split(".")[1]] * 1e3)
+
+
+def _plain_attention(flash, q, k, v, kw):
+    """``flash(q, k, v, **kw)`` on the plain route on the card
+    (``common._flash_attention``): ``ops.PLAIN_DEVICES`` widened to cuda."""
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+
+    return _with_patch(flash_ops, "PLAIN_DEVICES", ("cpu", "meta", "cuda"),
+                       lambda: flash(q, k, v, **kw))
+
+
 def _prefill_where(torch, model, params, batch_in, mods=None, positions=None):
     """A timed prefill (ms, peak memory), then one under torch.profiler that
     keeps every flash_attention call's inputs (and every ``moe_ffn_apply``
-    call's), then those calls alone under it, and the first attention
-    call's inputs timed through flash_attention and through
-    ``scaled_dot_product_attention`` (the yardstick of a later attention
-    kernel; the port never calls it).  ``mods``: the modules whose
+    call's, whose calls are then replayed alone under the profiler);
+    attention's share is the flash kernels' device time in the prefill's
+    own trace, read where that trace holds each launch once (a replay of
+    the flash launches alone lost its records: PERF.md section 7); every
+    kept attention call through the flash kernel held to the plain route
+    on its own inputs (``_row_rel`` within ``FLASH_TOL``), and the first
+    call's inputs timed through the kernel, the plain route and
+    ``scaled_dot_product_attention`` (a yardstick the port never calls)
+    beside the call's bound.  ``mods``: the modules whose
     ``flash_attention`` the prefill calls (``transformer`` when None);
     ``positions``: prompt positions a row (the tokens' count when None)."""
     from repro_torch.models import moe, transformer
@@ -1130,48 +1207,66 @@ def _prefill_where(torch, model, params, batch_in, mods=None, positions=None):
     dev = device_activity(torch, lambda: _with_patches(
         [(m, "flash_attention", keep) for m in mods] + [(moe, "moe_ffn_apply", keep_ffn)],
         lambda: model.prefill(params, batch_in)))
-    attn = device_activity(torch, lambda: [flash(q, k, v, **kw) for q, k, v, kw in calls])
     moe_dev = device_activity(torch, lambda: [ffn(*c) for c in ffn_calls]) if ffn_calls else {}
+    held = max(_row_rel(flash(q, k, v, **kw), _plain_attention(flash, q, k, v, kw))
+               for q, k, v, kw in calls)
     q, k, v, kw = calls[0]
     shape = [list(t.shape) for t in (q, k, v)]
+    dtype = str(q.dtype).split(".")[1]
+    bound_ms, bound_by = _attention_bound(q, k, kw.get("causal", True))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flash_ms = event_ms(torch, lambda: flash(q, k, v, **kw))
+    plain_ms = event_ms(torch, lambda: _plain_attention(flash, q, k, v, kw), reps=2)
     sdpa_ms = event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=kw.get("causal", True),
-                                           enable_gqa=True))
+                                           scale=kw.get("scale"), enable_gqa=True))
     sites, moe_sites = len(calls), len(ffn_calls)
     del calls, ffn_calls, q, k, v, qt, kt, vt
+    in_trace = sum(n for name, (n, _) in dev.items() if "flash_fwd" in name)
+    attn_ms = (sum(ms for name, (_, ms) in dev.items() if "flash_fwd" in name)
+               if in_trace == sites else None)
     dev_ms = sum(ms for _, ms in dev.values())
     n_dev = sum(n for n, _ in dev.values())
-    attn_ms = sum(ms for _, ms in attn.values())
     moe_ms = sum(ms for _, ms in moe_dev.values())
     ssd_ms = sum(ms for name, (_, ms) in dev.items() if "ssd_scan" in name)
     top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:6]
     B, L = batch_in["tokens"].shape
     positions = positions or L
+    if not held <= FLASH_TOL[dtype]:
+        fail(f"a prefill attention call through the flash kernel reads {held:.3e} of a row's "
+             f"max|ref| from the plain route (limit {FLASH_TOL[dtype]:.3e})")
     return dict(
         wall_s=wall, ms_per_prefill=wall * 1e3, prompt_positions=positions,
         prompt_tokens_per_s=B * positions / wall,
         peak_mem_gb=peak, device_ms=dev_ms, device_ops=n_dev,
         device_busy_share=dev_ms / (wall * 1e3) if n_dev else None,
         ssd_scan_ms=ssd_ms, ssd_scan_share=ssd_ms / dev_ms if n_dev else None,
-        attention_sites=sites, attention_ms=attn_ms,
-        attention_share=attn_ms / dev_ms if n_dev else None,
+        attention_sites=sites, flash_in_trace=in_trace, attention_ms=attn_ms,
+        attention_share=attn_ms / dev_ms if n_dev and attn_ms is not None else None,
         moe_sites=moe_sites, moe_ms=moe_ms, moe_share=moe_ms / dev_ms if n_dev else None,
-        attention_qkv_shapes=shape,
-        flash_ms_per_call=flash_ms, sdpa_ms_per_call=sdpa_ms,
+        attention_qkv_shapes=shape, attention_held_row_rel=held,
+        flash_ms_per_call=flash_ms, plain_ms_per_call=plain_ms, sdpa_ms_per_call=sdpa_ms,
+        flash_bound_ms=bound_ms, flash_bound_by=bound_by,
         top_device=[dict(name=k, ops=n, ms=ms) for k, (n, ms) in top],
     )
 
 
 def _say_where(label, line):
     if line["device_ops"]:
+        attention = ("{attention_ms:.3f} ms = {attention_share:.4f} of device time".format(**line)
+                     if line["attention_ms"] is not None else
+                     "not measured (the trace holds {flash_in_trace} of the {attention_sites} "
+                     "launches)".format(**line))
         say(f"[where] {label}: device busy {{device_ms:.3f}} ms = {{device_busy_share:.4f}} of the "
             "wall; {device_ops} device ops; ssd_scan {ssd_scan_ms:.3f} ms = {ssd_scan_share:.4f} "
-            "of device time; attention ({attention_sites} flash_attention calls, replayed alone) "
-            "{attention_ms:.3f} ms = {attention_share:.4f} of device time; one call "
-            "{flash_ms_per_call:.3f} ms, scaled_dot_product_attention on the same inputs "
-            "{sdpa_ms_per_call:.3f} ms".format(**line)
+            "of device time; attention (the {attention_sites} flash_attention calls' kernels "
+            f"in the trace) {attention}; one call: flash "
+            "kernel {flash_ms_per_call:.3f} ms against a bound of {flash_bound_ms:.3f} ms "
+            "({flash_bound_by}), the plain route {plain_ms_per_call:.3f} ms, "
+            "scaled_dot_product_attention on the same inputs {sdpa_ms_per_call:.3f} ms; every "
+            "call held to the plain route: max over rows of max|d|/max|ref| "
+            "{attention_held_row_rel:.3e}"
+            .format(**line)
             + ("; MoE ({moe_sites} moe_ffn_apply calls, replayed alone) {moe_ms:.3f} ms = "
                "{moe_share:.4f} of device time".format(**line) if line["moe_sites"] else ""))
         for d in line["top_device"]:
@@ -1185,12 +1280,46 @@ def _kernels():
     """The launch-counted wrappers of the port's kernels (the Mamba passes'
     count block calls, three launches each)."""
     from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
+    from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
     from repro_torch.kernels.mamba_passes.kernel import mamba_passes_cuda
     from repro_torch.kernels.s2d_conv.kernel import s2d_conv_cuda
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
 
     return dict(s2d_conv=s2d_conv_cuda, decode_attn=decode_attn_cuda, ssd_scan=ssd_scan_cuda,
-                mamba_passes=mamba_passes_cuda)
+                mamba_passes=mamba_passes_cuda, flash_attn=flash_attn_cuda)
+
+
+def _attention_sites(cfg):
+    """``flash_attention`` calls a prefill of ``cfg`` makes: one a layer
+    (dense, vlm, moe), one a shared-block site (hybrid, zamba2), the
+    encoder's layers once and the decoder's twice, self and cross (encdec)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    if cfg.family == "zamba2":
+        return cfg.n_sites
+    if cfg.family == "encdec":
+        return cfg.n_encoder_layers + 2 * cfg.n_layers
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def _prefill_counts(cfg, ssd=0, passes=0):
+    """The launch counts a prefill of ``cfg`` must read: its attention sites'
+    flash kernel, ``ssd`` SSD-kernel launches, ``passes`` pass-kernel block
+    calls, and nothing else."""
+    return dict(s2d_conv=0, decode_attn=0, ssd_scan=ssd, mamba_passes=passes,
+                flash_attn=_attention_sites(cfg))
+
+
+def _flash_launches(tree):
+    """The flash kernel's launches in every counted path of the report
+    (each ``launches`` dict's ``flash_attn``)."""
+    if isinstance(tree, list):
+        return sum(_flash_launches(t) for t in tree)
+    if not isinstance(tree, dict):
+        return 0
+    own = tree.get("launches")
+    return (own.get("flash_attn", 0) if isinstance(own, dict) else 0) + sum(
+        _flash_launches(t) for key, t in tree.items() if key != "launches")
 
 
 def _zero_counts(torch):
@@ -1441,6 +1570,81 @@ def mamba_passes_row(torch, report):
         torch.cuda.empty_cache()
 
 
+def flash_attn_row(torch, report):
+    """Phase (iii.c): the flash kernel at zamba2-7b's attention site
+    (``FLASH_SITE``, bf16, causal, scale (Dh/2)^-1/2), reached through
+    ``common.flash_attention`` with grad off (one launch) and held to the
+    plain route on the same inputs, each row against its own max|ref|
+    (``_row_rel``); timed with CUDA events beside its bound (the causal
+    products at the bf16 peak), the plain route and
+    ``scaled_dot_product_attention`` (a yardstick the port never calls); a
+    build of the source with ``FLASH_MIDDLE_TILE`` planted must read above
+    ``FLASH_FAULT_TIMES`` x the limit on the same inputs; the f32 kernel on
+    the first two rows (the size of the benchmark's float32 check) held and
+    timed too."""
+    import tempfile
+
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.kernels.nvcc import CSRC, CudaLibrary
+    from repro_torch.models.common import _flash_attention, flash_attention
+
+    flash_attn_cuda = kernel.flash_attn_cuda
+    B, L, H, Dh = (FLASH_SITE[k] for k in ("B", "L", "H", "Dh"))
+    scale = (Dh / 2) ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((B, L, H, Dh), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    plain = lambda q, k, v: _flash_attention(q, k, v, True, 512, 1024, scale)  # noqa: E731
+    want = plain(q, k, v)
+    before = flash_attn_cuda.launches
+    with torch.no_grad():
+        got = flash_attention(q, k, v, causal=True, scale=scale)
+    launched = flash_attn_cuda.launches - before
+    rel, rel_all = _row_rel(got, want), _max_rel(got, want)
+    src = (CSRC / "flash_attn.cu").read_text()
+    sound, planted = FLASH_MIDDLE_TILE
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "flash_attn_middle_tile.cu"
+        path.write_text(src.replace(sound, planted))
+        faulty = CudaLibrary(str(path), kernel._bind).load() if src.count(sound) == 1 else None
+    if faulty is None:
+        fail("flash_attn.cu no longer holds the line FLASH_MIDDLE_TILE plants its fault in")
+    got = kernel.launch(faulty, q, k, v, True, scale)
+    fault_rel, fault_rel_all = _row_rel(got, want), _max_rel(got, want)
+    del got, want
+    ms = event_ms(torch, lambda: flash_attn_cuda(q, k, v, True, scale), reps=10, warm=2)
+    plain_ms = event_ms(torch, lambda: plain(q, k, v), reps=2)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa_ms = event_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale), reps=10, warm=2)
+    del qt, kt, vt
+    bound_ms, bound_by = _attention_bound(q, k, True)
+    q32, k32, v32 = (t[:2].float() for t in (q, k, v))
+    rel32 = _row_rel(flash_attn_cuda(q32, k32, v32, True, scale), plain(q32, k32, v32))
+    ms32 = event_ms(torch, lambda: flash_attn_cuda(q32, k32, v32, True, scale), reps=3)
+    row = report["flash_attn"] = dict(
+        B=B, L=L, H=H, Dh=Dh, dtype="bfloat16", launches=launched, row_rel=rel,
+        max_rel=rel_all, fault_row_rel=fault_rel, fault_max_rel=fault_rel_all, ms=ms,
+        bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+        roofline=bound_ms / ms, f32_rows=2, f32_row_rel=rel32, f32_ms=ms32)
+    say("[flash] zamba2-7b's site B={B} L={L} H={H} Dh={Dh} bf16 causal: kernel {ms:.4f} ms "
+        "against a bound of {bound_ms:.4f} ms ({bound_by}; {roofline:.1%}), the plain route "
+        "{plain_ms:.4f} ms, scaled_dot_product_attention {sdpa_ms:.4f} ms; against the plain "
+        "route, max over rows of max|d|/max|ref| {row_rel:.3e} (max|d|/max|ref| over the "
+        "tensor {max_rel:.3e}); the middle tile left out of rows of 32 tiles or more "
+        "{fault_row_rel:.3e} ({fault_max_rel:.3e}); f32 on {f32_rows} rows {f32_ms:.4f} ms, "
+        "{f32_row_rel:.3e}; {launches} launch through flash_attention".format(**row))
+    tol = FLASH_TOL["bfloat16"]
+    if not (rel <= tol and rel32 <= FLASH_TOL["float32"]) or launched != 1:
+        fail(f"the flash kernel at zamba2-7b's site: bf16 {rel:.3e}, f32 {rel32:.3e} of a row's "
+             f"max|ref| from the plain route (limits {FLASH_TOL}); {launched} launches, not 1")
+    if not fault_rel > FLASH_FAULT_TIMES * tol:
+        fail(f"the planted fault (the middle tile of keys left out of long rows) reads "
+             f"{fault_rel:.3e}, not above {FLASH_FAULT_TIMES} x the limit {tol:.3e}")
+    del q, k, v, q32, k32, v32
+    torch.cuda.empty_cache()
+
+
 def dense_prefill(torch, report):
     """Phase (vii) (h): llama3.2-1b prefill at its published widths, with
     the kernel counts set to 0 just before it and read just after."""
@@ -1466,10 +1670,10 @@ def dense_prefill(torch, report):
     torch.cuda.synchronize()
     first_wall = time.perf_counter() - t0
     c = _counts()
-    say(f"[dense] counts read after the dense prefill path: {c} (no kernel of the port: "
-        "attention is flash_attention, the products torch.matmul)")
-    if any(c.values()):
-        fail(f"the dense prefill path launched kernels of the port: {c}")
+    say(f"[dense] counts read after the dense prefill path: {c} (flash_attn a layer, no other "
+        "kernel of the port: the products are torch.matmul)")
+    if c != _prefill_counts(cfg):
+        fail(f"the dense prefill path launched {c}, not flash_attn x {cfg.n_layers} alone")
     if tuple(logits.shape) != (Bp, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         fail(f"dense prefill returned {tuple(logits.shape)} logits, or non-finite ones")
     line = _prefill_where(torch, model, params, batch_in)
@@ -1546,9 +1750,9 @@ def hybrid(torch, report):
     first_wall = time.perf_counter() - t0
     c = _counts()
     say(f"[hybrid] counts read after the zamba2 prefill path: {c}")
-    if c != dict(s2d_conv=0, decode_attn=0, ssd_scan=cfg.n_layers, mamba_passes=cfg.n_layers):
+    if c != _prefill_counts(cfg, cfg.n_layers, cfg.n_layers):
         fail(f"the zamba2 prefill path launched {c}, not ssd_scan and mamba_passes x "
-             f"{cfg.n_layers} alone")
+             f"{cfg.n_layers} and flash_attn x {sites} alone")
     if tuple(logits.shape) != (Bp, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         fail(f"zamba2 prefill returned {tuple(logits.shape)} logits, or non-finite ones")
     # bf16: read against the plain-ssd_chunked replay, not held (as in phase (iii))
@@ -1598,7 +1802,8 @@ def hybrid(torch, report):
     model.decode_step = decode_step
     c = _counts()
     say(f"[hybrid] counts read after the zamba2 decode path: {c}")
-    if c != dict(s2d_conv=0, decode_attn=sites * n_tok, ssd_scan=0, mamba_passes=0):
+    if c != dict(s2d_conv=0, decode_attn=sites * n_tok, ssd_scan=0, mamba_passes=0,
+                 flash_attn=0):
         fail(f"the zamba2 decode path launched {c}, not decode_attn x {sites} x {n_tok} alone")
     if tuple(seq.shape) != (batch, n_tok) or len(kept) != n_tok:
         fail(f"zamba2 serve returned {tuple(seq.shape)} ids and {len(kept)} logits")
@@ -1823,7 +2028,8 @@ def _serve_held(torch, model, params, cache, first, start, n_tok, ctx, mods, sit
     model.decode_step = decode_step
     c = _counts()
     say(f"[{tag}] counts read after the {model.cfg.name} decode path: {c}")
-    if c != dict(s2d_conv=0, decode_attn=sites * n_tok, ssd_scan=0, mamba_passes=0):
+    if c != dict(s2d_conv=0, decode_attn=sites * n_tok, ssd_scan=0, mamba_passes=0,
+                 flash_attn=0):
         fail(f"the {model.cfg.name} decode path launched {c}, not decode_attn x {sites} x "
              f"{n_tok} alone")
     if tuple(seq.shape) != (batch, n_tok) or len(kept) != n_tok:
@@ -2027,10 +2233,10 @@ def _f32_checks(torch, tag, cfg, f32_in, check_prompt, seed, mods=None, cross_ex
 
 
 def _prefill_cell(torch, tag, model, params, batch_in, mods, positions, load_s, cache=None):
-    """The counted prefill (no kernel of the port: attention is
-    flash_attention, the products and the MoE einsums torch.matmul), with
-    the prompt's keys and values kept in ``cache`` where given, then its
-    readings."""
+    """The counted prefill (the flash kernel once an attention site and no
+    other kernel of the port: the products and the MoE einsums are
+    torch.matmul), with the prompt's keys and values kept in ``cache``
+    where given, then its readings."""
     _zero_counts(torch)
     t0 = time.perf_counter()
     if cache is None:
@@ -2041,8 +2247,9 @@ def _prefill_cell(torch, tag, model, params, batch_in, mods, positions, load_s, 
     first_wall = time.perf_counter() - t0
     c = _counts()
     say(f"[{tag}] counts read after the {model.cfg.name} prefill path: {c}")
-    if any(c.values()):
-        fail(f"the {model.cfg.name} prefill path launched kernels of the port: {c}")
+    if c != _prefill_counts(model.cfg):
+        fail(f"the {model.cfg.name} prefill path launched {c}, not flash_attn x "
+             f"{_attention_sites(model.cfg)} alone")
     B = batch_in["tokens"].shape[0]
     if tuple(logits.shape) != (B, model.cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         fail(f"{model.cfg.name} prefill returned {tuple(logits.shape)} logits, or non-finite ones")
@@ -2229,7 +2436,8 @@ def _train_cell(torch, report, cell):
     forward_plain = plain["calls"] - plain["backward"]
     say(f"[{tag}] counts read after the {arch} training path: {c}; plain ssd_chunked in a "
         f"forward: {forward_plain}, in the SSD backward: {plain['backward']}")
-    if c != dict(s2d_conv=0, decode_attn=0, ssd_scan=cell["ssd_calls"] * steps, mamba_passes=0):
+    if c != dict(s2d_conv=0, decode_attn=0, ssd_scan=cell["ssd_calls"] * steps, mamba_passes=0,
+                 flash_attn=0):
         fail(f"the {arch} training path launched {c}, not ssd_scan x {cell['ssd_calls']} x "
              f"{steps} alone")
     if forward_plain:
@@ -2657,7 +2865,8 @@ def decode_floor_c(torch, report, model, params):
     wall_ms = (time.perf_counter() - t0) * 1e3
     c = _counts()
     say(f"[floor] counts read after the (c) chunk: {c}")
-    if c != dict(s2d_conv=0, decode_attn=cfg.n_layers * n, ssd_scan=0, mamba_passes=0):
+    if c != dict(s2d_conv=0, decode_attn=cfg.n_layers * n, ssd_scan=0, mamba_passes=0,
+                 flash_attn=0):
         fail(f"the (c) decode chunk launched {c}, not decode_attn x {cfg.n_layers} x {n} alone")
     if tuple(seq.shape) != (B, n) or not bool(((seq >= 0) & (seq < cfg.vocab_size)).all()):
         fail(f"the (c) decode chunk returned {tuple(seq.shape)} ids, or ids outside the vocabulary")
@@ -3365,10 +3574,14 @@ def main():
     if ssd_launches != cfg.n_layers:
         fail(f"the prefill path launched the SSD kernel {ssd_launches} times, not {cfg.n_layers}")
     pass_calls = mp_kernel.mamba_passes_cuda.launches
-    say(f"[prefill] mamba_passes block calls = {pass_calls}")
+    flash_calls = _counts()["flash_attn"]
+    say(f"[prefill] mamba_passes block calls = {pass_calls}, flash_attn launches = {flash_calls}")
     if pass_calls != cfg.n_layers:
         fail(f"the prefill path ran the Mamba pass kernels in {pass_calls} block calls, not "
              f"{cfg.n_layers}")
+    if flash_calls:
+        fail(f"the prefill path of a model without attention launched the flash kernel "
+             f"{flash_calls} times")
 
     # checks (after the counts were read): shape, finite, then the same prefill
     # with the plain ssd_chunked in place of the kernel
@@ -3453,6 +3666,8 @@ def main():
     phase_done("phase (iii)")
     mamba_passes_row(torch, report)
     phase_done("phase (iii.b)")
+    flash_attn_row(torch, report)
+    phase_done("phase (iii.c)")
 
     # (iv) ssm decode: the O(1) recurrent step, which launches no kernel
     n_tok = SSM["tokens"]
@@ -3604,7 +3819,15 @@ def main():
         ms=main["passes_ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by="bytes", library_ms=main["library_norm_ms"],
     )
-    report["kernels"] = [entry, dec_entry, ssd_entry, passes_entry]
+    # prefill attention at zamba2-7b's site: no TPU kernel (XLA fused the lax version)
+    fa = report["flash_attn"]
+    flash_entry = dict(
+        name="flash_attn", route="cuda", source="src/repro_torch/csrc/flash_attn.cu",
+        replaces=None, launches=_flash_launches(report),
+        row_rel=fa["row_rel"], ms=fa["ms"], plain_ms=fa["plain_ms"], bound_ms=fa["bound_ms"],
+        bound_by=fa["bound_by"], library_ms=fa["sdpa_ms"],
+    )
+    report["kernels"] = [entry, dec_entry, ssd_entry, passes_entry, flash_entry]
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

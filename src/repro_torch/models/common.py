@@ -162,21 +162,29 @@ def flash_attention(
     k_chunk: int = 1024,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Chunked online-softmax attention with GQA, bounded memory.
+    """Online-softmax attention with GQA, bounded memory, on two routes.
 
-    q: [B, Lq, H, Dh]; k/v: [B, Lk, Hkv, Dh].  Lengths that are not a
-    multiple of the chunk are padded (padded keys are masked out, padded
-    query rows sliced off).  The JAX package's ``lax.map`` over query
-    chunks and ``lax.scan`` over key chunks are Python loops here; ``m``,
-    ``l`` and ``acc`` are f32, and every block is computed, the ones
-    above the causal diagonal too, as in JAX.  ``scale`` multiplies the
-    scores: None is 1/sqrt(Dh); zamba2 passes (Dh/2)^-1/2.  The whole call
-    is the span ``flash_attention`` (a flag check with no profiler)."""
+    q: [B, Lq, H, Dh]; k/v: [B, Lk, Hkv, Dh].  ``scale`` multiplies the
+    scores: None is 1/sqrt(Dh); zamba2 passes (Dh/2)^-1/2.  A CUDA tensor
+    with grad off goes to the Hopper kernel (``kernels/flash_attn``: one
+    launch, the tiles above the causal diagonal skipped); a CPU or ``meta``
+    tensor, or a call that autograd records, to the plain version
+    :func:`_flash_attention` (``kernels.flash_attn.ops`` holds the rule).
+    The whole call is the span ``flash_attention`` (a flag check with no
+    profiler)."""
+    from repro_torch.kernels.flash_attn import ops  # the route imports this module
+
     with span("flash_attention"):
-        return _flash_attention(q, k, v, causal, q_chunk, k_chunk, scale)
+        return ops.flash_attention(q, k, v, causal, q_chunk, k_chunk, scale)
 
 
 def _flash_attention(q, k, v, causal, q_chunk, k_chunk, scale):
+    """The plain version, chunked by ``q_chunk`` and ``k_chunk``.  Lengths
+    that are not a multiple of the chunk are padded (padded keys are masked
+    out, padded query rows sliced off).  The JAX package's ``lax.map`` over
+    query chunks and ``lax.scan`` over key chunks are Python loops here;
+    ``m``, ``l`` and ``acc`` are f32, and every block is computed, the ones
+    above the causal diagonal too, as in JAX."""
     B, Lq0, H, Dh = q.shape
     _, Lk0, Hkv, _ = k.shape
     G = H // Hkv

@@ -29,9 +29,11 @@ block, G groups), ``shared`` ``[num_mem_blocks, ...]``, ``adapters`` and
 ``site_linear`` ``[n_sites, ...]``.  :func:`zamba2_prefill` runs each
 Mamba block through ``mamba_block_apply`` (the fused passes and the SSD
 kernel on a CUDA tensor with grad off) and each site's attention through
-``common.flash_attention``; span ``zamba2.shared_block`` around a whole
-site, whose calls ``shared_block.calls`` counts.  :func:`zamba2_loss` is
-the same forward with ``chunked_softmax_xent``, for the CPU tests.  There
+``common.flash_attention`` (the flash kernel on a CUDA tensor with grad
+off, the plain chunked version on the CPU and under autograd); span
+``zamba2.shared_block`` around a whole site, whose calls
+``shared_block.calls`` counts.  :func:`zamba2_loss` is the same forward
+with ``chunked_softmax_xent``, for the CPU tests.  There
 is no decode (the decode-attention kernel takes no head dim of 224, and a
 decode cell waits for CUDA graphs) and there are no sharding specs (one
 card): those entry points raise ``NotImplementedError``.

@@ -67,7 +67,19 @@ runs on a machine that has only torch:
   CUDA graph per bucket) bit-equal to the same ops run eagerly on the card
   and on the host, for every backfill mode, and the SoA engine with every
   block round on it fingerprint-equal to the Python round; Algorithm 1
-  (``core/budget_torch``) on the card equal to the host.
+  (``core/budget_torch``) on the card equal to the host;
+* the prefill attention kernel (``csrc/flash_attn.cu``) against the plain
+  ``common._flash_attention`` on the same inputs, causal and not, each
+  output row (one query of one head) against its own max|ref|: f32 within
+  1e-5 (another summation order), bf16 within four bf16 ulps (P rounded
+  against other running maxima), at zamba2-7b's site, every other head
+  dim at 1, 4, 7 and 16 query heads a KV head, ragged lengths and
+  whisper's cross shape; strided views of a fused projection; two planted
+  faults, each built from a changed copy of the source, read far outside
+  the tolerance: the causal skip one tile early, and the middle tile of
+  keys left out of rows that read 32 tiles or more;
+  ``flash_attn_cuda.launches`` up by the sites a prefill and not at all
+  under grad; a tiny zamba2 through the kernel equal to the plain route.
 """
 
 import numpy as np
@@ -1191,7 +1203,7 @@ FAMILY_CARDS = [
 def test_new_families_prefill_and_decode_on_the_card_through_the_kernel(card, arch, over):
     """A reduced whisper, llava, llama4 and qwen3-moe (f32, at their
     families' head shapes: Dh 64 G 1, Dh 128 G 7, 5 and 16) prefill on the
-    card with no kernel launch and decode with one decode-kernel launch per
+    card with no decode-kernel launch and decode with one decode-kernel launch per
     attention site and step (whisper: two a layer, self and cross); the
     logits equal the same weights' on the CPU (tests/test_model_consistency.py's
     atol 2e-4, rtol 2e-3)."""
@@ -1315,3 +1327,204 @@ def test_budgets_on_the_card_equal_the_host(card):
         assert bool(got.feasible) == bool(host.feasible) == ref.feasible
         assert got.rho.cpu().tolist() == host.rho.tolist() == ref.rho.tolist()
         np.testing.assert_allclose(got.budgets.cpu().numpy(), ref.budgets, rtol=1e-5)
+
+
+# ---------------------------------------------- the prefill attention kernel ---
+
+#: (B, Lq, Lk, H, Hkv, Dh): zamba2-7b's site (scale (Dh/2)^-1/2); the other head
+#: dims at 1, 4, 7 and 16 query heads a KV head; ragged lengths (1100; 777 and
+#: 513, not multiples of 64); query and key lengths apart (whisper's cross
+#: attention, 448 against 1500); 15 heads of 4096, whose grid ends in a
+#: partial group of heads
+FLASH_SHAPES = [
+    (8, 4096, 4096, 32, 32, 224),
+    (2, 1100, 1100, 4, 4, 32),
+    (2, 777, 777, 16, 4, 64),
+    (2, 513, 513, 7, 1, 80),
+    (1, 1100, 1100, 56, 8, 128),
+    (1, 1000, 1000, 64, 4, 128),
+    (3, 4096, 4096, 5, 1, 128),
+    (2, 600, 600, 16, 16, 256),
+    (2, 448, 1500, 8, 8, 64),
+]
+#: each output row (one query position of one head) against its own max|ref|,
+#: so that the rows that see many keys, whose outputs are near 1/sqrt(keys),
+#: cannot hide under the first rows' (one key's v).  f32: the same products
+#: in full f32, summed in another order (read <= 6.4e-6)
+FLASH_F32_TOL = 1e-5
+#: bf16: four bf16 ulps (2^-8 of the row's max|ref| each): both routes round P
+#: to bf16, each against its own running max (64-key tiles here, 1024-key
+#: chunks there), the plain route rounds each chunk's P·V, and both round the
+#: output once more (read <= 1.06e-2)
+FLASH_BF16_TOL = 4 * 2.0**-8
+#: a planted fault the first rows cannot show: a warpgroup that reads 32 or
+#: more tiles of keys leaves out its middle one
+FLASH_MIDDLE_TILE = ("        if (j < mine) {",
+                     "        if (j < mine && (mine < 32 || j != mine / 2)) {")
+
+
+def _flash_inputs(card, B, Lq, Lk, H, Hkv, Dh, dtype, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=card).to(dtype)
+                 for shape in ((B, Lq, H, Dh), (B, Lk, Hkv, Dh), (B, Lk, Hkv, Dh)))
+
+
+def _flash_tol(dtype):
+    return FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+
+
+def _row_rel(got, ref):
+    """Max over the output rows (the last dim is the head dim) of
+    max|d_row| / max|ref_row|."""
+    d = (got.float() - ref.float()).abs().amax(-1)
+    return (d / ref.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def _flash_fault(tmp_path, sound, faulty):
+    """A build of ``flash_attn.cu`` with ``sound`` replaced by ``faulty``."""
+    from pathlib import Path
+
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.kernels.nvcc import CSRC, CudaLibrary
+
+    src = (CSRC / "flash_attn.cu").read_text()
+    assert src.count(sound) == 1
+    path = Path(tmp_path) / "flash_attn_fault.cu"
+    path.write_text(src.replace(sound, faulty))
+    return CudaLibrary(str(path), kernel._bind).load()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Lq,Lk,H,Hkv,Dh", FLASH_SHAPES)
+def test_flash_kernel_matches_the_plain_route(card, B, Lq, Lk, H, Hkv, Dh, causal, dtype):
+    """One launch, each row within the tolerance above of
+    ``common._flash_attention`` on the same inputs (TF32 off, as the plain
+    route's f32 products need)."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
+    from repro_torch.models.common import _flash_attention
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    scale = (Dh / 2) ** -0.5 if Dh == 224 else None
+    q, k, v = _flash_inputs(card, B, Lq, Lk, H, Hkv, Dh, dtype)
+    before = flash_attn_cuda.launches
+    got = flash_attn_cuda(q, k, v, causal, scale)
+    assert flash_attn_cuda.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (B, Lq, H, Dh)
+    want = _flash_attention(q, k, v, causal, 512, 1024, scale)
+    assert _row_rel(got, want) <= _flash_tol(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_views_of_a_fused_projection(card, dtype):
+    """q, k and v as head slices of one [B, L, H + 2 Hkv, Dh] tensor (rows of
+    (H + 2 Hkv) Dh elements): the same output, bit for bit, as from
+    contiguous copies."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
+
+    B, L, H, Hkv, Dh = 2, 700, 8, 2, 128
+    qkv = torch.randn((B, L, H + 2 * Hkv, Dh), device=card,
+                      generator=torch.Generator(device=card).manual_seed(0)).to(dtype)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+    assert not q.is_contiguous()
+    got = flash_attn_cuda(q, k, v, True)
+    assert torch.equal(got, flash_attn_cuda(*(t.contiguous() for t in (q, k, v)), True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_limit_reads_a_causal_skip_one_tile_early(card, tmp_path, dtype):
+    """A planted fault: the source with the causal skip one tile too early
+    (each block's last tile of keys, the one its diagonal crosses, left
+    out), built beside the sound one, reads far outside the tolerance that
+    the sound kernel meets on the same inputs."""
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.models.common import _flash_attention
+
+    faulty = _flash_fault(tmp_path, "return causal ? min(all, (end - 1) / bn + 1) : all;",
+                          "return causal ? min(all, (end - 1) / bn) : all;")
+    q, k, v = _flash_inputs(card, 2, 1100, 1100, 4, 2, 64, dtype)
+    want = _flash_attention(q, k, v, True, 512, 1024, None)
+    tol = _flash_tol(dtype)
+    assert _row_rel(kernel.flash_attn_cuda(q, k, v, True), want) <= tol
+    assert _row_rel(kernel.launch(faulty, q, k, v, True, None), want) > 10 * tol
+
+
+@pytest.mark.parametrize("B,L,H,Hkv,Dh,causal", [(8, 4096, 32, 32, 224, True),
+                                                 (3, 4096, 5, 1, 128, False)])
+def test_flash_limit_reads_the_middle_tile_left_out_of_long_rows(card, tmp_path, B, L, H, Hkv,
+                                                                 Dh, causal):
+    """A planted fault the first rows cannot show (``FLASH_MIDDLE_TILE``, in
+    the bf16 kernel): rows that read 32 tiles of keys or more, whose
+    outputs are a few hundredths where the first rows' are near one, leave
+    out one tile of them.  At zamba2-7b's site and at a non-causal GQA
+    shape, each row against its own max|ref| reads it far outside the
+    tolerance that the sound kernel meets on the same inputs."""
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.models.common import _flash_attention
+
+    faulty = _flash_fault(tmp_path, *FLASH_MIDDLE_TILE)
+    scale = (Dh / 2) ** -0.5 if Dh == 224 else None
+    q, k, v = _flash_inputs(card, B, L, L, H, Hkv, Dh, torch.bfloat16)
+    want = _flash_attention(q, k, v, causal, 512, 1024, scale)
+    assert _row_rel(kernel.flash_attn_cuda(q, k, v, causal, scale), want) <= FLASH_BF16_TOL
+    assert _row_rel(kernel.launch(faulty, q, k, v, causal, scale), want) > 4 * FLASH_BF16_TOL
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "zamba2-7b"])
+def test_flash_counter_rises_a_prefill_and_stays_under_grad(card, arch):
+    """``flash_attn_cuda.launches``: one an attention site in a prefill (bf16),
+    none in a training step's loss and gradients (remat full: the forward
+    and its recompute both on the plain route)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
+    from repro_torch.models.model_api import build_model
+    from repro_torch.tree import tree_leaves
+
+    if arch == "zamba2-7b":
+        cfg = _tiny_zamba2("bfloat16")
+        sites = cfg.n_sites
+    else:
+        cfg = get_config(arch).reduced(dtype="bfloat16")
+        sites = cfg.n_layers
+    cfg = dataclasses.replace(cfg, remat=True, remat_policy="full")
+    model = build_model(cfg, card)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    tok = torch.randint(0, cfg.vocab_size, (2, 65), device=card,
+                        generator=torch.Generator(device=card).manual_seed(1))
+    before = flash_attn_cuda.launches
+    model.prefill(params, {"tokens": tok[:, :-1]})
+    assert flash_attn_cuda.launches == before + sites
+    leaves = [t for t in tree_leaves(params) if t.is_floating_point()]
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = model.loss(params, {"tokens": tok[:, :-1], "labels": tok[:, 1:]})
+    torch.autograd.grad(loss, leaves)
+    assert flash_attn_cuda.launches == before + sites
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zamba2_prefill_through_the_flash_kernel_equals_the_plain_route(card, monkeypatch,
+                                                                       dtype):
+    """A tiny zamba2 prefill on the card through the kernel (one launch a
+    site) against the same weights' prefill on the plain route on the card
+    (``ops.PLAIN_DEVICES`` widened to ``cuda``, the counter put): f32 within
+    1e-5 of max|ref| (another summation order), bf16 logits within 2e-2 of
+    max|ref| (one bf16 ulp of attention's output, through seven layers)."""
+    from repro_torch.kernels.flash_attn import ops
+    from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
+    from repro_torch.models.model_api import build_model
+
+    cfg = _tiny_zamba2(dtype)
+    model = build_model(cfg, card)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 4 * cfg.ssm_chunk), dtype=np.int64)).to(card)
+    before = flash_attn_cuda.launches
+    got = model.prefill(params, {"tokens": toks})
+    assert flash_attn_cuda.launches == before + cfg.n_sites
+    monkeypatch.setattr(ops, "PLAIN_DEVICES", ("cpu", "meta", "cuda"))
+    want = model.prefill(params, {"tokens": toks})
+    assert flash_attn_cuda.launches == before + cfg.n_sites
+    assert _rel(got, want) <= (1e-5 if dtype == "float32" else 2e-2)
