@@ -141,7 +141,8 @@ Phases, each on lines of its own; any failure exits non-zero:
    route and ``scaled_dot_product_attention`` (a yardstick the port never
    calls); a build with a planted fault (the middle tile of keys left out
    of rows that read 32 tiles or more) read above four times that limit;
-   in f32 on two rows within 1e-5 of each row's max|ref|;
+   in f32 on two rows (the benchmark's float32 check) the plain route: no
+   launch, bit for bit ``common._flash_attention``, timed;
    (iv) ssm decode: ``serve.decode`` of the same model, B=8, 256 greedy
    tokens: no SSD or decode-attention launch (the recurrent step uses
    no kernel); ms/token, tokens/s, and under ``torch.profiler`` over 64
@@ -323,6 +324,7 @@ All rows also go to ``chiprun_out/chip_smoke.json``.
 """
 
 import dataclasses
+import inspect
 import itertools
 import json
 import math
@@ -437,9 +439,9 @@ SITE_TOL = 2e-2
 # query of one head) against its own max|ref| (``_row_rel``: rows that see many keys
 # are a few hundredths where the first rows are near one): four bf16 ulps (2^-8 of
 # the row's max|ref| each; P is rounded to bf16 against other running maxima, the
-# plain route rounds each chunk's P·V, both round the output), f32 another summation
-# order (tests/test_torch_cuda.py's limits)
-FLASH_TOL = {"bfloat16": 4 * 2.0**-8, "float32": 1e-5}
+# plain route rounds each chunk's P·V, both round the output; tests/test_torch_cuda.py's
+# limit).  The kernel is bf16 only: a float32 call takes the plain route
+FLASH_TOL = 4 * 2.0**-8
 # a planted fault of phase (iii.c) that the first rows cannot show: a warpgroup of
 # the bf16 kernel that reads 32 tiles of keys or more leaves out its middle one; it
 # must read above FLASH_FAULT_TIMES x the limit
@@ -1159,13 +1161,14 @@ def _attention_bound(q, k, causal):
     return bound(nbytes / HBM_BPS * 1e3, flops / PEAK[str(q.dtype).split(".")[1]] * 1e3)
 
 
-def _plain_attention(flash, q, k, v, kw):
-    """``flash(q, k, v, **kw)`` on the plain route on the card
-    (``common._flash_attention``): ``ops.PLAIN_DEVICES`` widened to cuda."""
-    from repro_torch.kernels.flash_attn import ops as flash_ops
+def _plain_attention(q, k, v, kw):
+    """``common.flash_attention(q, k, v, **kw)``'s plain route,
+    ``common._flash_attention``, with the same defaults, on the card."""
+    from repro_torch.models import common
 
-    return _with_patch(flash_ops, "PLAIN_DEVICES", ("cpu", "meta", "cuda"),
-                       lambda: flash(q, k, v, **kw))
+    call = inspect.signature(common.flash_attention).bind(q, k, v, **kw)
+    call.apply_defaults()
+    return common._flash_attention(*call.arguments.values())
 
 
 def _prefill_where(torch, model, params, batch_in, mods=None, positions=None):
@@ -1208,16 +1211,15 @@ def _prefill_where(torch, model, params, batch_in, mods=None, positions=None):
         [(m, "flash_attention", keep) for m in mods] + [(moe, "moe_ffn_apply", keep_ffn)],
         lambda: model.prefill(params, batch_in)))
     moe_dev = device_activity(torch, lambda: [ffn(*c) for c in ffn_calls]) if ffn_calls else {}
-    held = max(_row_rel(flash(q, k, v, **kw), _plain_attention(flash, q, k, v, kw))
+    held = max(_row_rel(flash(q, k, v, **kw), _plain_attention(q, k, v, kw))
                for q, k, v, kw in calls)
     q, k, v, kw = calls[0]
     shape = [list(t.shape) for t in (q, k, v)]
-    dtype = str(q.dtype).split(".")[1]
     bound_ms, bound_by = _attention_bound(q, k, kw.get("causal", True))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flash_ms = event_ms(torch, lambda: flash(q, k, v, **kw))
-    plain_ms = event_ms(torch, lambda: _plain_attention(flash, q, k, v, kw), reps=2)
+    plain_ms = event_ms(torch, lambda: _plain_attention(q, k, v, kw), reps=2)
     sdpa_ms = event_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=kw.get("causal", True),
                                            scale=kw.get("scale"), enable_gqa=True))
     sites, moe_sites = len(calls), len(ffn_calls)
@@ -1232,9 +1234,9 @@ def _prefill_where(torch, model, params, batch_in, mods=None, positions=None):
     top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:6]
     B, L = batch_in["tokens"].shape
     positions = positions or L
-    if not held <= FLASH_TOL[dtype]:
+    if not held <= FLASH_TOL:
         fail(f"a prefill attention call through the flash kernel reads {held:.3e} of a row's "
-             f"max|ref| from the plain route (limit {FLASH_TOL[dtype]:.3e})")
+             f"max|ref| from the plain route (limit {FLASH_TOL:.3e})")
     return dict(
         wall_s=wall, ms_per_prefill=wall * 1e3, prompt_positions=positions,
         prompt_tokens_per_s=B * positions / wall,
@@ -1579,9 +1581,10 @@ def flash_attn_row(torch, report):
     products at the bf16 peak), the plain route and
     ``scaled_dot_product_attention`` (a yardstick the port never calls); a
     build of the source with ``FLASH_MIDDLE_TILE`` planted must read above
-    ``FLASH_FAULT_TIMES`` x the limit on the same inputs; the f32 kernel on
-    the first two rows (the size of the benchmark's float32 check) held and
-    timed too."""
+    ``FLASH_FAULT_TIMES`` x the limit on the same inputs; in f32 on the first
+    two rows (the size of the benchmark's float32 check), the plain route
+    through ``flash_attention``: no launch, bit for bit
+    ``common._flash_attention``, and timed."""
     import tempfile
 
     from repro_torch.kernels.flash_attn import kernel
@@ -1620,27 +1623,37 @@ def flash_attn_row(torch, report):
     del qt, kt, vt
     bound_ms, bound_by = _attention_bound(q, k, True)
     q32, k32, v32 = (t[:2].float() for t in (q, k, v))
-    rel32 = _row_rel(flash_attn_cuda(q32, k32, v32, True, scale), plain(q32, k32, v32))
-    ms32 = event_ms(torch, lambda: flash_attn_cuda(q32, k32, v32, True, scale), reps=3)
+    before32 = flash_attn_cuda.launches
+    with torch.no_grad():
+        plain32 = torch.equal(flash_attention(q32, k32, v32, causal=True, scale=scale),
+                              plain(q32, k32, v32))
+        ms32 = event_ms(torch, lambda: flash_attention(q32, k32, v32, causal=True, scale=scale),
+                        reps=3)
+    launched32 = flash_attn_cuda.launches - before32
     row = report["flash_attn"] = dict(
         B=B, L=L, H=H, Dh=Dh, dtype="bfloat16", launches=launched, row_rel=rel,
         max_rel=rel_all, fault_row_rel=fault_rel, fault_max_rel=fault_rel_all, ms=ms,
         bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
-        roofline=bound_ms / ms, f32_rows=2, f32_row_rel=rel32, f32_ms=ms32)
+        roofline=bound_ms / ms, f32_rows=2, f32_plain_equal=plain32, f32_launches=launched32,
+        f32_plain_ms=ms32)
     say("[flash] zamba2-7b's site B={B} L={L} H={H} Dh={Dh} bf16 causal: kernel {ms:.4f} ms "
         "against a bound of {bound_ms:.4f} ms ({bound_by}; {roofline:.1%}), the plain route "
         "{plain_ms:.4f} ms, scaled_dot_product_attention {sdpa_ms:.4f} ms; against the plain "
         "route, max over rows of max|d|/max|ref| {row_rel:.3e} (max|d|/max|ref| over the "
         "tensor {max_rel:.3e}); the middle tile left out of rows of 32 tiles or more "
-        "{fault_row_rel:.3e} ({fault_max_rel:.3e}); f32 on {f32_rows} rows {f32_ms:.4f} ms, "
-        "{f32_row_rel:.3e}; {launches} launch through flash_attention".format(**row))
-    tol = FLASH_TOL["bfloat16"]
-    if not (rel <= tol and rel32 <= FLASH_TOL["float32"]) or launched != 1:
-        fail(f"the flash kernel at zamba2-7b's site: bf16 {rel:.3e}, f32 {rel32:.3e} of a row's "
-             f"max|ref| from the plain route (limits {FLASH_TOL}); {launched} launches, not 1")
-    if not fault_rel > FLASH_FAULT_TIMES * tol:
+        "{fault_row_rel:.3e} ({fault_max_rel:.3e}); {launches} launch through "
+        "flash_attention; f32 on {f32_rows} rows through flash_attention: the plain route "
+        "{f32_plain_ms:.4f} ms, {f32_launches} launches, equal to it bit for bit "
+        "{f32_plain_equal}".format(**row))
+    if not rel <= FLASH_TOL or launched != 1:
+        fail(f"the flash kernel at zamba2-7b's site: {rel:.3e} of a row's max|ref| from the "
+             f"plain route (limit {FLASH_TOL:.3e}); {launched} launches, not 1")
+    if not plain32 or launched32:
+        fail(f"f32 attention at zamba2-7b's site through flash_attention: {launched32} flash "
+             f"launches, not 0, or not the plain route bit for bit ({plain32})")
+    if not fault_rel > FLASH_FAULT_TIMES * FLASH_TOL:
         fail(f"the planted fault (the middle tile of keys left out of long rows) reads "
-             f"{fault_rel:.3e}, not above {FLASH_FAULT_TIMES} x the limit {tol:.3e}")
+             f"{fault_rel:.3e}, not above {FLASH_FAULT_TIMES} x the limit {FLASH_TOL:.3e}")
     del q, k, v, q32, k32, v32
     torch.cuda.empty_cache()
 

@@ -49,20 +49,20 @@
 // is dropped: it rounds each 1024-key chunk's P V to bf16 before adding it to
 // its f32 sum, where the kernel keeps P V in f32 throughout.
 //
-// f32 (the float32 checks of the program's own code) takes flash_fwd_f32:
-// the same masking, causal skipping and tile order, FMA on the CUDA cores in
-// full f32 (no TF32), expf as the plain route's exp.
+// bf16 only.  A float32 call (the float32 checks of the program's own code)
+// takes the plain route: no workload runs attention in float32, and a kernel
+// of its own would share none of this one's wgmma, TMA or softmax code.
 //
 // Head dims 32, 64, 80, 128, 224 and 256 (each a multiple of 16, wgmma's
-// depth), in bf16 and f32; head h reads KV head h / (H / Hkv); Lq may differ
-// from Lk (causal: query i sees keys 0..i, as the plain route's mask).
+// depth); head h reads KV head h / (H / Hkv); Lq may differ from Lk (causal:
+// query i sees keys 0..i, as the plain route's mask).
 //
 // Build:  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //              -Xcompiler -fPIC -o libflash_attn.so flash_attn.cu
 // C interface: flash_attn_fwd launches one kernel on the given stream and
 // returns cudaGetLastError() as an int (0 == launched), or TMAP_ERROR plus
 // the CUresult where cuTensorMapEncodeTiled refused a tensor map.  The caller checks
-// shapes, dtypes, head dims, strides and alignment.
+// shapes, the dtype, head dims, strides and alignment.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -74,7 +74,7 @@
 
 namespace {
 
-constexpr int BM = 128;        // query rows a block of the bf16 kernel (2 warpgroups of 64)
+constexpr int BM = 128;        // query rows a block (2 warpgroups of 64)
 constexpr int BN = 64;         // keys a K/V tile
 constexpr int CW = 64;         // head-dim columns a 128-byte swizzled chunk (bf16)
 constexpr int STAGES = 2;      // K/V tiles in flight
@@ -422,99 +422,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 }
 
-// ---------------------------------------------------------------- f32 ---
-
-constexpr int FM = 64;          // query rows a block of the f32 kernel
-constexpr int FN = 32;          // keys a tile
-constexpr int F_THREADS = 256;  // four threads a row
-
-template <int DH> struct FTile {
-    static constexpr int LDQ = DH + 1, LDK = DH + 1, LDV = DH, LDP = FN + 1;
-    static constexpr int SMEM = 4 * (FM * LDQ + FN * LDK + FN * LDV + FM * LDP);
-    static_assert(SMEM <= 232448, "a block has 227 KB of shared memory");
-};
-
-template <int DH>
-__global__ void __launch_bounds__(F_THREADS)
-    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out, int H, int Hkv, int Lq,
-                  int Lk, long long sqb, long long sql, long long sqh, long long skb,
-                  long long skl, long long skh, long long svb, long long svl, long long svh,
-                  int BH, int tiles, int group, float scale, int causal) {
-    using T = FTile<DH>;
-    extern __shared__ float fs[];
-    float* Qs = fs;
-    float* Ks = Qs + FM * T::LDQ;
-    float* Vs = Ks + FN * T::LDK;
-    float* Ps = Vs + FN * T::LDV;
-
-    const Place at = place(BH, tiles, group);
-    const int b = at.bh / H, h = at.bh % H, hk = h / (H / Hkv);
-    const int q0 = at.tile * FM;
-    const int n_kv = kv_tiles(q0, FM, Lq, Lk, FN, causal);
-    const int t = threadIdx.x, r = t / 4, part = t % 4, row = q0 + r;
-    const float* qb = q + b * sqb + h * sqh;
-    const float* kb = k + b * skb + hk * skh;
-    const float* vb = v + b * svb + hk * svh;
-
-    for (int i = t; i < FM * DH; i += F_THREADS) {
-        const int rr = i / DH, d = i % DH;
-        Qs[rr * T::LDQ + d] = q0 + rr < Lq ? qb[(q0 + rr) * sql + d] : 0.f;
-    }
-    float o[DH / 4];
-#pragma unroll
-    for (int i = 0; i < DH / 4; ++i) o[i] = 0.f;
-    float m = NEG, l = 0.f;
-
-    for (int j = 0; j < n_kv; ++j) {
-        const int key0 = j * FN;
-        __syncthreads();  // the previous tile is consumed (and Q is in)
-        for (int i = t; i < FN * DH; i += F_THREADS) {
-            const int kr = i / DH, d = i % DH, key = key0 + kr;
-            Ks[kr * T::LDK + d] = key < Lk ? kb[key * skl + d] : 0.f;
-            Vs[kr * T::LDV + d] = key < Lk ? vb[key * svl + d] : 0.f;
-        }
-        __syncthreads();
-        float s[FN / 4];
-        float x = NEG;
-#pragma unroll
-        for (int i = 0; i < FN / 4; ++i) {
-            const int col = part + 4 * i, key = key0 + col;
-            float acc = 0.f;
-#pragma unroll 8
-            for (int d = 0; d < DH; ++d) acc = fmaf(Qs[r * T::LDQ + d], Ks[col * T::LDK + d], acc);
-            s[i] = acc * scale;
-            if (key >= Lk || (causal && key > row)) s[i] = NEG;
-            x = fmaxf(x, s[i]);
-        }
-        const float mn = fmaxf(m, quad_max(x));
-        const float corr = expf(m - mn);
-        m = mn;
-        float sum = 0.f;
-#pragma unroll
-        for (int i = 0; i < FN / 4; ++i) {
-            const float p = expf(s[i] - mn);
-            sum += p;
-            Ps[r * T::LDP + part + 4 * i] = p;
-        }
-        l = l * corr + sum;
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < DH / 4; ++i) o[i] *= corr;
-        for (int jj = 0; jj < FN; ++jj) {
-            const float p = Ps[r * T::LDP + jj];
-#pragma unroll
-            for (int i = 0; i < DH / 4; ++i) o[i] = fmaf(p, Vs[jj * T::LDV + part + 4 * i], o[i]);
-        }
-    }
-    l = fmaxf(quad_sum(l), 1e-30f);
-    if (row < Lq) {
-        float* orow = out + (static_cast<size_t>(b) * Lq + row) * H * DH + h * DH;
-#pragma unroll
-        for (int i = 0; i < DH / 4; ++i) orow[part + 4 * i] = o[i] / l;
-    }
-}
-
 // ------------------------------------------------------------- launch ---
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -571,7 +478,7 @@ struct Args {
     cudaStream_t stream;
 };
 
-template <int DH> int launch_bf16(const Args& a) {
+template <int DH> int launch(const Args& a) {
     CUtensorMap tq, tk, tv;
     int rc = tensor_map(&tq, a.q, a.B, a.Lq, a.H, DH, a.sqb, a.sql, a.sqh, BM);
     if (!rc) rc = tensor_map(&tk, a.k, a.B, a.Lk, a.Hkv, DH, a.skb, a.skl, a.skh, BN);
@@ -588,42 +495,22 @@ template <int DH> int launch_bf16(const Args& a) {
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH> int launch_f32(const Args& a) {
-    const int smem = FTile<DH>::SMEM;
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int BH = a.B * a.H, tiles = (a.Lq + FM - 1) / FM;
-    flash_fwd_f32<DH><<<BH * tiles, F_THREADS, smem, a.stream>>>(
-        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), static_cast<float*>(a.out), a.H, a.Hkv, a.Lq, a.Lk,
-        a.sqb, a.sql, a.sqh, a.skb, a.skl, a.skh, a.svb, a.svl, a.svh, BH, tiles,
-        head_group(BH, tiles), a.scale, a.causal);
-    return static_cast<int>(cudaGetLastError());
-}
-
-template <int DH> int launch(const Args& a, int dtype) {
-    if (dtype == 0) return launch_f32<DH>(a);
-    if (dtype == 1) return launch_bf16<DH>(a);
-    return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace
 
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* out, int B,
                               int Lq, int Lk, int H, int Hkv, int Dh, long long sqb,
                               long long sql, long long sqh, long long skb, long long skl,
                               long long skh, long long svb, long long svl, long long svh,
-                              float scale, int causal, int dtype, void* stream) {
+                              float scale, int causal, void* stream) {
     const Args a{q, k, v, out, B, Lq, Lk, H, Hkv, sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
                  scale, causal, static_cast<cudaStream_t>(stream)};
     switch (Dh) {
-        case 32: return launch<32>(a, dtype);
-        case 64: return launch<64>(a, dtype);
-        case 80: return launch<80>(a, dtype);
-        case 128: return launch<128>(a, dtype);
-        case 224: return launch<224>(a, dtype);
-        case 256: return launch<256>(a, dtype);
+        case 32: return launch<32>(a);
+        case 64: return launch<64>(a);
+        case 80: return launch<80>(a);
+        case 128: return launch<128>(a);
+        case 224: return launch<224>(a);
+        case 256: return launch<256>(a);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

@@ -36,9 +36,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.nvcc import CudaLibrary
+from repro_torch.kernels.nvcc import DTYPE_CODES, CudaLibrary, check_launch, stream
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 GROUPS = (1, 2, 4, 8)
 #: (head dim, query heads per KV head) the kernel is built for: every pair of
@@ -120,7 +119,7 @@ def decode_attn_cuda(
             f"(got {q.device}, {cache_k.device}, {cache_v.device}, {valid_len.device}); "
             "CPU tensors go to ref.decode_attention"
         )
-    if q.dtype not in _DTYPE_CODES or cache_k.dtype != q.dtype or cache_v.dtype != q.dtype:
+    if q.dtype not in DTYPE_CODES or cache_k.dtype != q.dtype or cache_v.dtype != q.dtype:
         raise ValueError(
             "decode_attn_cuda takes float32 or bfloat16 q, cache_k and cache_v of one dtype "
             f"(got {q.dtype}, {cache_k.dtype}, {cache_v.dtype})"
@@ -158,13 +157,11 @@ def decode_attn_cuda(
                              2 * Dh * q.element_size(), n_sm)
     lib = load()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
         rc = lib.decode_attn(
             q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), valid_len.data_ptr(),
-            out.data_ptr(), B, L, Hkv, G, Dh, splits, _DTYPE_CODES[q.dtype], stream,
+            out.data_ptr(), B, L, Hkv, G, Dh, splits, DTYPE_CODES[q.dtype], stream(dev),
         )
-    if rc != 0:
-        raise RuntimeError(f"decode_attn launch failed: cudaError {rc}")
+    check_launch("decode_attn", rc)
     decode_attn_cuda.launches += 1
     return out
 

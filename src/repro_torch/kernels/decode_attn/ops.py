@@ -4,13 +4,10 @@ Port of the JAX package's ``kernels/decode_attn/ops.py``, at the call
 site of ``models/common.decode_attention``: ``q [B, 1, H, Dh]``, a
 ``[B, L, Hkv, Dh]`` cache and the position of the newest token.  The JAX
 wrapper's ``backend`` / ``interpret`` / ``chunk`` arguments choose among
-TPU paths and have no counterpart here; this module only routes:
-
-* a CPU tensor goes to the plain version (:func:`.ref.decode_attention`),
-  and so does a ``meta`` one (:data:`PLAIN_DEVICES`: the dry run's
-  shapes, so a FLOP count sees the plain version's products);
-* a CUDA tensor goes to the hand-written kernel (:mod:`.kernel`), which
-  launches or raises.  There is no fallback.
+TPU paths and have no counterpart here; this module only routes, by
+``repro_torch.device``'s rule: the plain version (:func:`.ref.decode_attention`)
+on :data:`PLAIN_DEVICES`, the hand-written kernel (:mod:`.kernel`) on every
+other device.  No training path calls it, so autograd decides nothing here.
 """
 
 from __future__ import annotations
@@ -19,11 +16,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES
 from repro_torch.kernels.decode_attn.kernel import decode_attn_cuda
 from repro_torch.kernels.decode_attn.ref import decode_attention
-
-#: device types routed to the plain version; every other goes to the kernel
-PLAIN_DEVICES = ("cpu", "meta")
 
 
 def gqa_decode_attention(

@@ -3,9 +3,9 @@
 The forward pass of ``models.common.flash_attention`` on the no-grad CUDA
 route (see the note at the top of the CUDA source): one launch a call, q
 ``[B, Lq, H, Dh]`` against k, v ``[B, Lk, Hkv, Dh]``, head h reading KV
-head ``h / (H / Hkv)``, causal (query i sees keys 0..i) or not.  bf16 runs
-on wgmma with TMA loads read straight from the tensors' strides; f32 (the
-float32 checks) runs the same tiling on the CUDA cores in full f32.
+head ``h / (H / Hkv)``, causal (query i sees keys 0..i) or not, in bf16
+on wgmma with TMA loads read straight from the tensors' strides.  A float32
+call takes the plain route (``ops``), not this kernel.
 
 :func:`flash_attn_cuda` checks dtype, shape, head dim, groups, strides and
 alignment, then the device, and raises on what the kernel does not take;
@@ -14,7 +14,7 @@ the launch is refused, and counts its launches in
 ``flash_attn_cuda.launches`` (a plain integer), so a run can show that its
 main path went through the kernel.  :func:`launch` is the launch itself,
 on any build of the source (the card tests build a changed copy to plant
-a fault).  :func:`smem_bytes` is the shared memory a block of each kernel
+a fault).  :func:`smem_bytes` is the shared memory a block of the kernel
 asks for, the plan the CPU tests check.
 
 The source is compiled with ``nvcc`` at first use into a shared library
@@ -30,38 +30,32 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels.nvcc import CudaLibrary
+from repro_torch.kernels.nvcc import CudaLibrary, check_launch, stream
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head dims the kernel is built for: the tiny twins' 32, llama3.2-1b's and
 #: whisper's 64, zamba2-2.7b's 80, the Dh-128 families', zamba2-7b's 224, gemma-7b's 256
 HEAD_DIMS = (32, 64, 80, 128, 224, 256)
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
-#: the bf16 kernel: query rows a block, keys a tile, head-dim columns a
-#: 128-byte swizzled chunk, tiles in flight
+#: query rows a block, keys a tile, head-dim columns a 128-byte swizzled
+#: chunk, tiles in flight
 BLOCK_M, BLOCK_N, CHUNK, STAGES = 128, 64, 64, 2
-#: the f32 kernel: query rows a block, keys a tile
-F32_BLOCK_M, F32_BLOCK_N = 64, 32
 TMAP_ERROR = 1000  # launch codes from here up: cuTensorMapEncodeTiled refused a tensor map
 
 
-def smem_bytes(head_dim: int, dtype: torch.dtype = torch.bfloat16) -> int:
-    """Dynamic shared memory a block of the kernel asks for at ``head_dim``.
-    bf16: Q (BLOCK_M rows) and STAGES x (K + V) (BLOCK_N rows each), the
-    head dim in 128-byte chunks rounded up to CHUNK columns, 1024 bytes to
-    align them, and the mbarriers.  f32: Q, K (padded rows), V and P."""
-    if dtype == torch.bfloat16:
-        chunks = -(-head_dim // CHUNK)
-        q, kv = chunks * BLOCK_M * 128, chunks * BLOCK_N * 128
-        return 1024 + q + STAGES * 2 * kv + 8 * (1 + 2 * STAGES)
-    return 4 * (F32_BLOCK_M * (head_dim + 1) + F32_BLOCK_N * (head_dim + 1)
-                + F32_BLOCK_N * head_dim + F32_BLOCK_M * (F32_BLOCK_N + 1))
+def smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory a block of the kernel asks for at ``head_dim``:
+    Q (BLOCK_M rows) and STAGES x (K + V) (BLOCK_N rows each), the head dim
+    in 128-byte chunks rounded up to CHUNK columns, 1024 bytes to align
+    them, and the mbarriers."""
+    chunks = -(-head_dim // CHUNK)
+    q, kv = chunks * BLOCK_M * 128, chunks * BLOCK_N * 128
+    return 1024 + q + STAGES * 2 * kv + 8 * (1 + 2 * STAGES)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.flash_attn_fwd
-    fn.argtypes = [p] * 4 + [i] * 6 + [ll] * 9 + [ctypes.c_float, i, i, p]
+    fn.argtypes = [p] * 4 + [i] * 6 + [ll] * 9 + [ctypes.c_float, i, p]
     fn.restype = ctypes.c_int
 
 
@@ -75,9 +69,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"{name} takes q [B, Lq, H, Dh] and k, v [B, Lk, Hkv, Dh] (got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)})")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"{name} takes q, k and v all in float32 or all in bfloat16 (got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype})")
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise ValueError(f"{name} takes q, k and v all in bfloat16 (got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}); float32 goes to common._flash_attention")
     B, _, H, Dh = q.shape
     if tuple(k.shape) != tuple(v.shape) or k.shape[0] != B or k.shape[3] != Dh:
         raise ValueError(f"{name}: k {tuple(k.shape)} and v {tuple(v.shape)} do not match q "
@@ -90,13 +84,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
         if t.stride(3) != 1:
             raise ValueError(f"{name} needs a contiguous last dim of {n} (strides {t.stride()})")
-    if q.dtype == torch.bfloat16:  # TMA: 16-byte aligned bases and strides
-        for t, n in ((q, "q"), (k, "k"), (v, "v")):
-            if any(s % 8 for s in t.stride()[:3]):
-                raise ValueError(f"{name} needs {n}'s strides in multiples of 16 bytes (strides "
-                                 f"{t.stride()})")
-            if t.device.type == "cuda" and t.data_ptr() % 16:
-                raise ValueError(f"{name} needs {n} at a 16-byte aligned address")
+    for t, n in ((q, "q"), (k, "k"), (v, "v")):  # TMA: 16-byte aligned bases and strides
+        if any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(f"{name} needs {n}'s strides in multiples of 16 bytes (strides "
+                             f"{t.stride()})")
+        if t.device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"{name} needs {n} at a 16-byte aligned address")
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"{name} needs q, k and v on one CUDA device (got {q.device}, {k.device}, "
@@ -106,7 +99,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def flash_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention of ``q [B, Lq, H, Dh]`` over ``k, v [B, Lk, Hkv, Dh]``, in
-    q's dtype: ``softmax(q kᵀ scale, masked) v``, ``scale`` None being
+    bf16: ``softmax(q kᵀ scale, masked) v``, ``scale`` None being
     1/sqrt(Dh), as ``common._flash_attention`` computes it."""
     _check(q, k, v)
     out = launch(load(), q, k, v, causal, scale)
@@ -126,13 +119,11 @@ def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
         rc = lib.flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Lq, Lk, H, Hkv, Dh,
             q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2), scale, int(bool(causal)),
-            _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+            v.stride(0), v.stride(1), v.stride(2), scale, int(bool(causal)), stream(q.device))
     if rc >= TMAP_ERROR:
         raise RuntimeError(f"flash_attn_cuda: cuTensorMapEncodeTiled refused a tensor map "
                            f"(CUresult {rc - TMAP_ERROR})")
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_cuda launch failed: cudaError {rc}")
+    check_launch("flash_attn_cuda", rc)
     return out
 
 

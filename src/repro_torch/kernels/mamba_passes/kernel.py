@@ -37,12 +37,11 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.kernels.mamba_passes.ref import ssm_groups
-from repro_torch.kernels.nvcc import CudaLibrary
+from repro_torch.kernels.nvcc import DTYPE_CODES, CudaLibrary, check_launch, stream
 from repro_torch.models.common import linear
 from repro_torch.models.config import ModelConfig
 from repro_torch.spans import span
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 NORM_MAX_CHUNKS = 32 * 32  # 16-byte chunks of a row the input norm holds (32 a lane)
 GATE_MAX_CHUNKS = 8 * 256  # 16-byte chunks of a row the gate norm holds (8 a thread)
 CONV_WIDTHS = (2, 3, 4)
@@ -76,7 +75,7 @@ def _check(name: str, ts: Dict[str, torch.Tensor], dtype: torch.dtype) -> None:
         got = ", ".join(f"{k} {t.device}" for k, t in ts.items())
         raise ValueError(f"{name} needs its tensors on one CUDA device (got {got}); CPU "
                          "tensors go to ref.mamba_passes")
-    if dtype not in _DTYPE_CODES:
+    if dtype not in DTYPE_CODES:
         raise ValueError(f"{name} takes float32 or bfloat16 activations (got {dtype})")
     for k, t in ts.items():
         if not t.is_contiguous():
@@ -94,15 +93,6 @@ def _dtypes(name: str, want: torch.dtype, **ts: torch.Tensor) -> None:
 def _shape(name: str, t: torch.Tensor, want: tuple, what: str) -> None:
     if tuple(t.shape) != tuple(want):
         raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, not {tuple(want)}")
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _launched(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
 def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -124,8 +114,8 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tens
     lib = load()
     with torch.cuda.device(x.device):
         rc = lib.mamba_rmsnorm(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D, eps,
-                               _DTYPE_CODES[x.dtype], _stream(x.device))
-    _launched(name, rc)
+                               DTYPE_CODES[x.dtype], stream(x.device))
+    check_launch(name, rc)
     return out
 
 
@@ -178,8 +168,8 @@ def conv_silu_cuda(zxbcdt: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Ten
         rc = lib.mamba_conv_silu(
             zxbcdt.data_ptr(), width, conv_w.data_ptr(), conv_b.data_ptr(), dt_bias.data_ptr(),
             A_log.data_ptr(), x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
-            log_a.data_ptr(), Bsz, L, Din, N, H, W, _DTYPE_CODES[dtype], _stream(dev))
-    _launched(name, rc)
+            log_a.data_ptr(), Bsz, L, Din, N, H, W, DTYPE_CODES[dtype], stream(dev))
+    check_launch(name, rc)
     return x, Bm, Cm, dt, log_a
 
 
@@ -226,8 +216,8 @@ def gate_norm_cuda(y: torch.Tensor, x: torch.Tensor, zxbcdt: torch.Tensor, D: to
     with torch.cuda.device(x.device):
         rc = lib.mamba_gate_norm(y.data_ptr(), x.data_ptr(), zxbcdt.data_ptr(), zxbcdt.shape[-1],
                                  D.data_ptr(), scale.data_ptr(), out.data_ptr(), Bsz * L, Din, Pd,
-                                 G, eps, _DTYPE_CODES[x.dtype], _stream(x.device))
-    _launched(name, rc)
+                                 G, eps, DTYPE_CODES[x.dtype], stream(x.device))
+    check_launch(name, rc)
     return out
 
 

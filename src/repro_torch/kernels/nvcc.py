@@ -18,12 +18,29 @@ import tempfile
 from pathlib import Path
 from typing import Callable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
+
+
+#: the dtype argument of the kernels' C interfaces
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def stream(device: torch.device) -> int:
+    """The handle of ``device``'s current CUDA stream, the one a launch goes on."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise if the C function ``name`` returned a nonzero CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
 def _nvcc(source: Path) -> str:

@@ -34,9 +34,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.nvcc import CudaLibrary
+from repro_torch.kernels.nvcc import DTYPE_CODES, CudaLibrary, check_launch, stream
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILE_M = 64  # output rows of a tile (BM in the source)
 TILE_N = 64  # output columns of a tile (BN)
 TILE_K = {torch.float32: 32, torch.bfloat16: 64}  # contraction slab (Cfg<T>::BK): 128 bytes
@@ -129,7 +128,7 @@ def s2d_conv_cuda(x: torch.Tensor, w: torch.Tensor, gamma: int,
             f"s2d_conv_cuda needs x and w on one CUDA device (got {x.device}, "
             f"{w.device}); CPU tensors go to ref.s2d_conv_ref"
         )
-    if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
+    if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
         raise ValueError(
             f"s2d_conv_cuda takes float32 or bfloat16 x and w of one dtype "
             f"(got {x.dtype}, {w.dtype})"
@@ -155,13 +154,11 @@ def s2d_conv_cuda(x: torch.Tensor, w: torch.Tensor, gamma: int,
         split = plan_s2d(M, Cv, Kv, x.dtype, n_sm).split
     lib = load()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
         rc = lib.s2d_conv_gemm(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), M, Cv, Kv, split,
-            _DTYPE_CODES[x.dtype], stream,
+            DTYPE_CODES[x.dtype], stream(x.device),
         )
-    if rc != 0:
-        raise RuntimeError(f"s2d_conv_gemm launch failed: cudaError {rc}")
+    check_launch("s2d_conv_gemm", rc)
     s2d_conv_cuda.launches += 1
     return out
 

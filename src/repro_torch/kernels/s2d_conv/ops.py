@@ -4,11 +4,9 @@ Port of the JAX package's ``kernels/s2d_conv/ops.py``.  Where the JAX
 package picked Pallas tiles against a VMEM budget, the CUDA kernel
 (:mod:`.kernel`) takes the whole GEMM; this module only routes:
 
-* :func:`s2d_variant_conv` sends a CUDA tensor to the kernel and a CPU
-  or ``meta`` tensor (:data:`PLAIN_DEVICES`; ``meta``: the dry run's
-  shapes, so a FLOP count sees the plain version's products) to the
-  plain version (:func:`.ref.s2d_conv_ref`).  There is no fallback: a
-  kernel that cannot run on a CUDA tensor raises.
+* :func:`s2d_variant_conv` routes by ``repro_torch.device``'s rule: the
+  plain version (:func:`.ref.s2d_conv_ref`) on :data:`PLAIN_DEVICES`, the
+  kernel on every other device.
 * :func:`s2d_variant_conv_rs` is the R x S > 1 case — im2col at the d2s
   resolution, then a product that the JAX package leaves to XLA's
   ``einsum`` and this port to ``torch.matmul``.
@@ -19,11 +17,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import PLAIN_DEVICES
 from repro_torch.kernels.s2d_conv.kernel import s2d_conv_cuda
 from repro_torch.kernels.s2d_conv.ref import d2s, s2d, s2d_conv_ref
-
-#: device types routed to the plain version; every other goes to the kernel
-PLAIN_DEVICES = ("cpu", "meta")
 
 
 def s2d_variant_conv(x: torch.Tensor, w: torch.Tensor, gamma: int) -> torch.Tensor:

@@ -25,9 +25,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.nvcc import CudaLibrary
+from repro_torch.kernels.nvcc import DTYPE_CODES, CudaLibrary, check_launch, stream
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 32, 64, 128)  # P
 SMEM_MAX = 232448  # bytes of shared memory one block may use on Hopper
 _TILE = 64  # rows of the kernel's C, B and G tiles
@@ -102,7 +101,7 @@ def ssd_scan_cuda(
             f"{x.device}, {log_a.device}, {B.device}, {C.device}, {dt.device}); "
             "CPU tensors go to ref.ssd_chunked"
         )
-    if x.dtype not in _DTYPE_CODES or B.dtype != x.dtype or C.dtype != x.dtype:
+    if x.dtype not in DTYPE_CODES or B.dtype != x.dtype or C.dtype != x.dtype:
         raise ValueError(
             "ssd_scan_cuda takes float32 or bfloat16 x, B and C of one dtype "
             f"(got {x.dtype}, {B.dtype}, {C.dtype})"
@@ -145,13 +144,12 @@ def ssd_scan_cuda(
     with torch.cuda.device(dev):
         # from the caching allocator (under CUDA-graph capture, the graph's own pool)
         cb = torch.empty(workspace_shape(Bt, L, Q, G), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ssd_scan(
             x.data_ptr(), log_a.data_ptr(), B.data_ptr(), C.data_ptr(), dt.data_ptr(),
-            cb.data_ptr(), out.data_ptr(), Bt, L, H, P, N, Q, G, _DTYPE_CODES[x.dtype], stream,
+            cb.data_ptr(), out.data_ptr(), Bt, L, H, P, N, Q, G, DTYPE_CODES[x.dtype],
+            stream(dev),
         )
-    if rc != 0:
-        raise RuntimeError(f"ssd_scan launch failed: cudaError {rc}")
+    check_launch("ssd_scan", rc)
     ssd_scan_cuda.launches += 1
     return out
 

@@ -2,20 +2,14 @@
 
 Port of the JAX package's ``kernels/ssd_scan/ops.py``.  The model's
 prefill and its training forward (``models.mamba2.mamba_block_apply``)
-call :func:`ssd_scan`:
-
-* a CPU tensor goes to the plain blocked version (:func:`.ref.ssd_chunked`),
-  which autograd differentiates as it is, and so does a ``meta`` one
-  (:data:`PLAIN_DEVICES`: the dry run's shapes, so a FLOP count sees the
-  plain version's products);
-* a CUDA tensor goes to the hand-written kernel (:mod:`.kernel`), which
-  launches or raises.  There is no fallback.  While autograd records
-  (grad enabled and an input requiring grad) the kernel runs inside
-  :class:`SSDScan`, whose backward is the gradient of the plain
-  ``ssd_chunked`` recomputed from the saved inputs: the function the JAX
-  package differentiates, since it has no backward kernel.  So a CUDA
-  scan under grad always returns a tensor with a ``grad_fn``, and no
-  CUDA tensor reaches the plain version in a forward.
+call :func:`ssd_scan`, which routes by ``repro_torch.device``'s rule: the
+plain blocked version (:func:`.ref.ssd_chunked`), which autograd
+differentiates as it is, on :data:`PLAIN_DEVICES`; the hand-written kernel
+(:mod:`.kernel`) on every other device.  While autograd records, the
+kernel runs inside :class:`SSDScan`, whose backward is the gradient of
+the plain ``ssd_chunked`` recomputed from the saved inputs: the function
+the JAX package differentiates, since it has no backward kernel.  So no
+CUDA tensor reaches the plain version in a forward.
 
 The JAX switch's ``backend`` and ``interpret`` choices have no
 counterpart: the plain version and the oracle are called from
@@ -28,11 +22,9 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.device import PLAIN_DEVICES, recording
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
 from repro_torch.spans import span
-
-#: device types routed to the plain version; every other goes to the kernel
-PLAIN_DEVICES = ("cpu", "meta")
 
 
 def plain_grads(inputs: Sequence[torch.Tensor], needs: Sequence[bool], chunk: int,
@@ -89,6 +81,6 @@ def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor, C: torch.Ten
     # passes contiguous tensors, which copy nothing here
     args = tuple(t.contiguous() for t in (x, log_a, B, C, dt))
     with span("ssd_scan"):
-        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if recording(*args):
             return SSDScan.apply(*args, chunk)
         return ssd_scan_cuda(*args, chunk)

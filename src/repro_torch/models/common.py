@@ -165,11 +165,12 @@ def flash_attention(
     """Online-softmax attention with GQA, bounded memory, on two routes.
 
     q: [B, Lq, H, Dh]; k/v: [B, Lk, Hkv, Dh].  ``scale`` multiplies the
-    scores: None is 1/sqrt(Dh); zamba2 passes (Dh/2)^-1/2.  A CUDA tensor
-    with grad off goes to the Hopper kernel (``kernels/flash_attn``: one
-    launch, the tiles above the causal diagonal skipped); a CPU or ``meta``
-    tensor, or a call that autograd records, to the plain version
-    :func:`_flash_attention` (``kernels.flash_attn.ops`` holds the rule).
+    scores: None is 1/sqrt(Dh); zamba2 passes (Dh/2)^-1/2.  A bf16 CUDA
+    tensor with grad off goes to the Hopper kernel (``kernels/flash_attn``:
+    one launch, the tiles above the causal diagonal skipped); a CPU or
+    ``meta`` tensor, a float32 call, or a call that autograd records, to the
+    plain version :func:`_flash_attention` (``kernels.flash_attn.ops`` holds
+    the rule).
     The whole call is the span ``flash_attention`` (a flag check with no
     profiler)."""
     from repro_torch.kernels.flash_attn import ops  # the route imports this module

@@ -3,10 +3,11 @@
 * The route of ``common.flash_attention``: CPU and ``meta`` tensors take the
   plain ``common._flash_attention``; with ``ops.PLAIN_DEVICES`` narrowed to
   the CPU, so that a ``meta`` tensor stands for a CUDA one, the kernel's
-  route is taken exactly when autograd does not record (grad off, or none
-  of q, k, v requiring grad); a training step (remat full: the forward and
-  its recompute) never takes it; every family's prefill takes it once an
-  attention site; the span ``flash_attention`` holds either route.
+  route is taken exactly by a bf16 call that autograd does not record (grad
+  off, or none of q, k, v requiring grad), and never by a float32 one; a
+  training step (remat full: the forward and its recompute) never takes
+  it; every family's bf16 prefill takes it once an attention site; the
+  span ``flash_attention`` holds either route.
 * The wrapper's refusals, on ``meta`` tensors, before anything is built.
 * The plan: each instantiation's shared memory within the 227 KB a block
   may use, with the tile constants the CUDA source declares.
@@ -95,6 +96,7 @@ def test_the_plain_route_is_the_former_function():
     assert torch.equal(got, common._flash_attention(q, k, v, True, 4, 2, 0.3))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("grad,needs,route", [
     (False, "", "kernel"),
     (False, "qkv", "kernel"),
@@ -104,16 +106,19 @@ def test_the_plain_route_is_the_former_function():
     (True, "v", "plain"),
     (True, "qkv", "plain"),
 ])
-def test_only_a_call_that_autograd_records_leaves_the_kernel(monkeypatch, grad, needs, route):
+def test_only_a_call_that_autograd_records_leaves_the_kernel(monkeypatch, grad, needs, route,
+                                                             dtype):
     """On a device outside ``PLAIN_DEVICES`` (``meta``, with the CPU the only
     plain device), grad on and q, k or v requiring grad is the plain route;
-    anything else the kernel's."""
+    anything else the kernel's in bf16.  A float32 call is the plain route
+    whatever grad says."""
     monkeypatch.setattr(ops, "PLAIN_DEVICES", ("cpu",))
     routes = _Routes(monkeypatch)
-    q, k, v = (t.requires_grad_(n in needs) for t, n in zip(_qkv("meta"), "qkv"))
+    q, k, v = (t.requires_grad_(n in needs) for t, n in zip(_qkv("meta", dtype), "qkv"))
     with torch.set_grad_enabled(grad):
         common.flash_attention(q, k, v, causal=True, q_chunk=4, k_chunk=4)
-    assert (routes.plain, routes.kernel) == ((1, 0) if route == "plain" else (0, 1))
+    plain = route == "plain" or dtype == torch.float32
+    assert (routes.plain, routes.kernel) == ((1, 0) if plain else (0, 1))
 
 
 @pytest.mark.parametrize("route", ["plain", "kernel"])
@@ -122,7 +127,7 @@ def test_the_span_holds_either_route(monkeypatch, route):
     if route == "kernel":
         monkeypatch.setattr(ops, "PLAIN_DEVICES", ("cpu",))
     routes = _Routes(monkeypatch)
-    q, k, v = _qkv("cpu" if route == "plain" else "meta")
+    q, k, v = _qkv("cpu" if route == "plain" else "meta", torch.bfloat16)
     with profile(activities=[ProfilerActivity.CPU]) as prof, torch.no_grad():
         common.flash_attention(q, k, v, causal=True, q_chunk=4, k_chunk=4)
     got = {e.name(): (e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
@@ -154,13 +159,13 @@ def _config(arch):
 
 def _small(arch):
     if arch in PORT_ARCHS:
-        return dataclasses.replace(get_port_config(arch), dtype="float32", **ZAMBA2_TINY)
-    return get_config(arch).reduced(dtype="float32")
+        return dataclasses.replace(get_port_config(arch), dtype="bfloat16", **ZAMBA2_TINY)
+    return get_config(arch).reduced(dtype="bfloat16")
 
 
 @pytest.mark.parametrize("arch", ARCHS + PORT_ARCHS)
 def test_every_family_prefill_takes_the_kernel_once_a_site(monkeypatch, arch):
-    """A reduced prefill on ``meta`` standing for the card, grad off: one
+    """A reduced bf16 prefill on ``meta`` standing for the card, grad off: one
     kernel call an attention site (as ``chip_smoke.py`` counts the sites it
     holds each prefill phase to), none of the plain version; no test of the
     model's name decides it."""
@@ -176,12 +181,12 @@ def test_every_family_prefill_takes_the_kernel_once_a_site(monkeypatch, arch):
 
 
 def test_a_training_step_with_remat_never_takes_the_kernel(monkeypatch):
-    """A remat-full loss and its gradient, on ``meta`` standing for the card:
-    each layer's forward and its recompute take the plain version; a
+    """A bf16 remat-full loss and its gradient, on ``meta`` standing for the
+    card: each layer's forward and its recompute take the plain version; a
     prefill with grad off, the kernel."""
     monkeypatch.setattr(ops, "PLAIN_DEVICES", ("cpu",))
     routes = _Routes(monkeypatch)
-    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(dtype="float32"), remat=True,
+    cfg = dataclasses.replace(get_config("llama3.2-1b").reduced(dtype="bfloat16"), remat=True,
                               remat_policy="full")
     model = build_model(cfg, "meta")
     params = tree_map(_meta, build_model(cfg, "cpu").init(torch.Generator().manual_seed(0)))
@@ -203,8 +208,9 @@ def _strided(shape, strides, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("float16", "float32 or all in bfloat16"),
-    ("mixed", "float32 or all in bfloat16"),
+    ("float16", "all in bfloat16"),
+    ("float32", "all in bfloat16"),
+    ("mixed", "all in bfloat16"),
     ("head_dim_48", r"head dims \(32, 64, 80, 128, 224, 256\)"),
     ("groups", "not whole groups"),
     ("last_dim", "contiguous last dim"),
@@ -219,6 +225,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case, match):
     q, k, v = _qkv("meta", torch.bfloat16, Dh=64)
     if case == "float16":
         q, k, v = (t.half() for t in (q, k, v))
+    elif case == "float32":
+        q, k, v = (t.float() for t in (q, k, v))
     elif case == "mixed":
         q = q.float()
     elif case == "head_dim_48":
@@ -241,7 +249,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case, match):
 
 def test_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
-        flash_attn_cuda(*_qkv("cpu", torch.float32))
+        flash_attn_cuda(*_qkv("cpu", torch.bfloat16))
     assert kernel.LIBRARY._lib is None
 
 
@@ -258,20 +266,18 @@ def test_plan_constants_are_the_sources():
     consts, cases = _source_constants()
     assert (consts["BM"], consts["BN"], consts["CW"], consts["STAGES"]) == (
         kernel.BLOCK_M, kernel.BLOCK_N, kernel.CHUNK, kernel.STAGES)
-    assert (consts["FM"], consts["FN"], consts["TMAP_ERROR"]) == (
-        kernel.F32_BLOCK_M, kernel.F32_BLOCK_N, kernel.TMAP_ERROR)
+    assert consts["TMAP_ERROR"] == kernel.TMAP_ERROR
     assert cases == HEAD_DIMS
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("head_dim", HEAD_DIMS)
-def test_shared_memory_fits_at_every_head_dim(head_dim, dtype):
+def test_shared_memory_fits_at_every_head_dim(head_dim):
     """Q + STAGES x (K + V), aligned, at most 232,448 bytes a block; at
     zamba2-7b's 224 (four 64-column chunks): 64 KB of Q and two stages of
     32 KB of K and 32 KB of V."""
-    need = smem_bytes(head_dim, dtype)
+    need = smem_bytes(head_dim)
     assert 0 < need <= SMEM_LIMIT == 232448
-    if dtype == torch.bfloat16 and head_dim == 224:
+    if head_dim == 224:
         assert need == 1024 + 4 * 128 * 128 + 2 * 2 * 4 * 64 * 128 + 40 == 197672
 
 
