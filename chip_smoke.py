@@ -131,7 +131,19 @@ Phases, each on lines of its own; any failure exits non-zero:
    norm's yardstick; each kernel held to the plain pass on the plain
    block's own inputs within 4 bf16 ulps of max|ref| (dt and log_a, f32,
    within 2e-6); a block call through ``ops.mamba_passes`` with grad off
-   counts one, and one under autograd none;
+   counts one, one under autograd one (its Functions), and its backward
+   one block backward (``backward_calls``).  Then the passes' backward
+   (``mamba_passes_backward_row``) at (p)'s training shape (mamba2-1.3b,
+   B=8, L=2048) and at zamba2-7b's block (two B/C groups) at the same B
+   and L, bf16: each Function's gradients (every input and leaf) held to
+   autograd through the plain pass on the same inputs and output gradient
+   within 4 bf16 ulps of max|ref|; each backward kernel (with its
+   parameter gradients' sums) timed beside its byte floor
+   (``kernel.backward_floor_bytes``), the forward kernels at that shape,
+   and a pass's forward and backward on the Functions against the plain
+   pass's under autograd, summed over the three passes, and the passes of
+   a training step's layer (a forward, remat's recompute and a backward):
+   the kernels' device times against the plain passes';
    (iii.c) the prefill attention kernel (``flash_attn_row``) at zamba2-7b's
    site (B=8, L=4096, 32 heads of 224, causal, scale (Dh/2)^-1/2), bf16:
    one launch through ``common.flash_attention`` with grad off, held to
@@ -242,7 +254,8 @@ Phases, each on lines of its own; any failure exits non-zero:
    (p) ``mamba2-1.3b`` (48 layers), whose SSD kernel must be called
    exactly 96 times a step (a forward and a remat recompute a layer, each
    inside ``ops.SSDScan``) and the plain ``ssd_chunked`` never in a
-   forward (only in the Function's backward).  Held: the first loss in
+   forward (only in the Function's backward); the Mamba passes' kernels 96
+   block calls a step (inside their Functions) and 48 block backwards.  Held: the first loss in
    (0.5 ln V, 2 ln V), every loss and grad norm finite, the optimiser's
    step counter 1..6.  Read: ms a step, tokens/s, peak memory, every
    loss; one more step under ``torch.profiler``: device time (its forward
@@ -460,10 +473,12 @@ FLASH_SITE = dict(B=8, L=4096, H=32, Dh=224)
 # `ssd_calls`: SSD-kernel calls a step (a forward and a remat recompute a layer)
 TRAIN_CELLS = [
     dict(label="o", arch="llama3.2-1b", batch=8, seq=2048, steps=6, warm=2, ssd_calls=0,
+         pass_calls=0,
          widths=dict(n_layers=16, d_model=2048, n_heads=32, n_kv_heads=8, head_dim=64,
                      d_ff=8192, vocab_size=128256, dtype="bfloat16", remat=True,
                      remat_policy="full")),
     dict(label="p", arch="mamba2-1.3b", batch=8, seq=2048, steps=6, warm=2, ssd_calls=96,
+         pass_calls=96,
          widths=dict(n_layers=48, d_model=2048, ssm_state=128, ssm_headdim=64, ssm_chunk=256,
                      vocab_size=50280, dtype="bfloat16", remat=True, remat_policy="full")),
 ]
@@ -1385,6 +1400,9 @@ def _cross_path(torch, m, p, prompt, seed, extra=None, cache=None):
 # lookup), bf16, one block at the published widths (seed 0)
 PASS_CELLS = [("mamba2-1.3b", 64, 4096), ("zamba2-2.7b", 8, 4096), ("zamba2-7b", 8, 4096)]
 PASS_ULPS = 4  # each kernel vs the plain pass on its inputs: tests/test_torch_cuda.py's limit
+# (iii.b) the passes' backward: (arch, B, L) of (p)'s training step, and
+# zamba2-7b's block (two B/C groups) at the same B and L, bf16, seed 0
+PASS_BWD_CELLS = [("mamba2-1.3b", 8, 2048), ("zamba2-7b", 8, 2048)]
 
 
 def _bf16_ulps(got, want):
@@ -1543,13 +1561,17 @@ def mamba_passes_row(torch, report):
             launched = mp.mamba_passes_cuda.launches - before
         del seen, conv, h, zx, g, y
         pg = tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
-        before = mp.mamba_passes_cuda.launches
-        ops.mamba_passes(cfg, pg, x[:1, :cfg.ssm_chunk], ssd_scan)
-        under_grad = mp.mamba_passes_cuda.launches - before
+        before = (mp.mamba_passes_cuda.launches, mp.mamba_passes_cuda.backward_calls)
+        out = ops.mamba_passes(cfg, pg, x[:1, :cfg.ssm_chunk], ssd_scan)
+        under_grad = mp.mamba_passes_cuda.launches - before[0]
+        out.float().sum().backward()
+        backwards = mp.mamba_passes_cuda.backward_calls - before[1]
+        del out
         floor = {k: v / HBM_BPS * 1e3 for k, v in mp.floor_bytes(cfg, B * L, 2).items()}
         row = dict(arch=arch, B=B, L=L, groups=G, scan_ms=scan_ms, dtype="bfloat16",
                    max_ulps=max(ulps.values()),
                    ulps=ulps, f32_max_rel=f32_rel, launches=launched, launches_under_grad=under_grad,
+                   backward_calls=backwards,
                    **{f"{k}_ms": v for k, v in ms.items()},
                    **{f"{k}_bound_ms": v for k, v in floor.items()},
                    passes_ms=sum(ms.values()), bound_ms=sum(floor.values()),
@@ -1561,14 +1583,141 @@ def mamba_passes_row(torch, report):
             + "; passes {passes_ms:.4f} ms against a floor of {bound_ms:.4f} ms and the plain "
             "passes' {plain_ms:.4f} ms; F.rms_norm {library_norm_ms:.4f} ms; max ulps vs plain "
             "{ulps}, dt/log_a max rel {f32_max_rel:.2e}; block calls counted {launches} (grad "
-            "off), {launches_under_grad} (under autograd)".format(**row))
+            "off), {launches_under_grad} (under autograd), block backwards {backward_calls}"
+            .format(**row))
         if row["max_ulps"] > PASS_ULPS or not f32_rel <= 2e-6:
             fail(f"a Mamba pass kernel at {arch} B={B} L={L} is {ulps} bf16 ulps from the plain "
                  f"pass (limit {PASS_ULPS}), dt/log_a {f32_rel:.2e} (limit 2e-6)")
-        if (launched, under_grad) != (1, 0):
-            fail(f"mamba_passes_cuda counted {launched} block calls with grad off and "
-                 f"{under_grad} under autograd, not 1 and 0")
+        if (launched, under_grad, backwards) != (1, 1, 1):
+            fail(f"mamba_passes_cuda counted {launched} block calls with grad off, "
+                 f"{under_grad} under autograd and {backwards} block backwards, not 1, 1 and 1")
         del p, pg, x
+        torch.cuda.empty_cache()
+
+
+def mamba_passes_backward_row(torch, report):
+    """Phase (iii.b), backward: at ``PASS_BWD_CELLS`` each pass's Function
+    held to autograd through the plain pass on the same inputs and output
+    gradient; each backward kernel timed beside its byte floor; each pass's
+    forward and backward on the Functions and on the plain pass, and the
+    passes of a training step's layer on each route."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs.port_only import get_port_config
+    from repro_torch.kernels.mamba_passes import kernel as mp
+    from repro_torch.kernels.mamba_passes import ref
+    from repro_torch.models.common import linear, rmsnorm
+    from repro_torch.models.mamba2 import init_mamba_block
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = report["mamba_passes_backward"] = []
+    for arch, B, L in PASS_BWD_CELLS:
+        cfg = dataclasses.replace((get_config if arch in ARCHS else get_port_config)(arch),
+                                  n_layers=1)
+        G, Din, N = ref.ssm_groups(cfg), cfg.d_inner, cfg.ssm_state
+        H, Pd, eps = cfg.ssm_nheads, cfg.ssm_headdim, cfg.norm_eps
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        p = init_mamba_block(gen, cfg, bf16)
+
+        def draw(shape, dt=bf16):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+        x, y = draw((B, L, cfg.d_model)), draw((B, L, H, Pd))
+        with torch.no_grad():
+            zx = linear(p["in_proj"], rmsnorm(p["norm"], x, eps))
+            xs = ref.conv_pass(cfg, p, zx, bf16)[0].reshape(B, L, Din).contiguous()
+        bc = (B, L, N) if G == 1 else (B, L, G, N)
+        dh, dg, dskip = draw(x.shape), draw((B, L, Din)), draw((B, L, Din))
+        dconv = (draw((B, L, Din)), draw(bc), draw(bc), draw((B, L, H), f32),
+                 draw((B, L, H), f32))
+        names = ("conv_w", "conv_b", "dt_bias", "A_log")
+        dzx = torch.empty_like(zx)  # the input projection's gradient, as the gate's backward hands it
+
+        def leaves(*ts):
+            return [t.detach().clone().requires_grad_(True) for t in ts]
+
+        def norm_fb(fused):
+            a, s = leaves(x, p["norm"]["scale"])
+            h = mp.RMSNormFn.apply(a, s, eps) if fused else rmsnorm({"scale": s}, a, eps)
+            return torch.autograd.grad(h, (a, s), dh)
+
+        def conv_fb(fused):
+            ts = leaves(zx, *(p[k] for k in names))
+            if fused:  # the D skip's dx and the projection's gradient through the link
+                link = mp.Link()
+                link.dx, link.dzx = dskip, dzx
+                outs = mp.ConvSiluFn.apply(*ts, Din, N, H, G, link)
+                gs = dconv
+            else:  # autograd adds the D skip's dx to the scan's
+                xh, la, Bm, Cm, dt = ref.conv_pass(cfg, dict(zip(names, ts[1:])), ts[0], bf16)
+                outs, gs = (xh.reshape(B, L, Din), Bm, Cm, dt, la), (dconv[0] + dskip,) + dconv[1:]
+            got = torch.autograd.grad(outs, ts, gs)
+            return (got[0][..., Din:],) + got[1:]
+
+        def gate_fb(fused):
+            ts = leaves(y, xs, zx, p["D"], p["out_norm"]["scale"])
+            if fused:
+                link = mp.Link()
+                g = mp.GateNormFn.apply(*ts, eps, Pd, G, link)
+                dy, dD, dsc = torch.autograd.grad(g, (ts[0], ts[3], ts[4]), dg)
+                return dy, link.dx, link.dzx[..., :Din], dD, dsc
+            g = ref.gate_pass(cfg, {"D": ts[3], "out_norm": {"scale": ts[4]}}, ts[0],
+                              ts[1].view(y.shape), ts[2], bf16)
+            dy, dx_, dz, dD, dsc = torch.autograd.grad(g, ts, dg)
+            return dy, dx_, dz[..., :Din], dD, dsc
+
+        passes = dict(norm=norm_fb, conv=conv_fb, gate_norm=gate_fb)
+        ulps = {}
+        for k, fb in passes.items():
+            ulps[k] = max(_bf16_ulps(a, b) for a, b in zip(fb(True), fb(False)))
+        conv_args = (p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"], Din, N, H, G)
+        gate_args = (p["D"], p["out_norm"]["scale"], eps, Pd, G)
+        with torch.no_grad():
+            fwd = dict(
+                norm=lambda: mp.rmsnorm_cuda(x, p["norm"]["scale"], eps),
+                conv=lambda: mp.conv_silu_cuda(zx, *conv_args),
+                gate_norm=lambda: mp.gate_norm_cuda(y, xs, zx, *gate_args))
+            bwd = dict(
+                norm=lambda: mp.rmsnorm_bwd_cuda(x, p["norm"]["scale"], dh, eps),
+                conv=lambda: mp.conv_silu_bwd_cuda(zx, *conv_args[:4], *dconv, *conv_args[4:],
+                                                   dx_extra=dskip, dzx=dzx),
+                gate_norm=lambda: mp.gate_norm_bwd_cuda(y, xs, zx, *gate_args[:2], dg,
+                                                        *gate_args[2:], dzx=dzx))
+            plain_fwd = dict(
+                norm=lambda: rmsnorm(p["norm"], x, eps),
+                conv=lambda: ref.conv_pass(cfg, p, zx, bf16),
+                gate_norm=lambda: ref.gate_pass(cfg, p, y, xs.view(y.shape), zx, bf16))
+            fwd_ms = {k: event_ms(torch, fn, reps=10, warm=2) for k, fn in fwd.items()}
+            bwd_ms = {k: event_ms(torch, fn, reps=10, warm=2) for k, fn in bwd.items()}
+            plain_fwd_ms = sum(event_ms(torch, fn, reps=5) for fn in plain_fwd.values())
+        fb_ms = {route: sum(event_ms(torch, lambda fb=fb: fb(fused), reps=5)
+                            for fb in passes.values())
+                 for route, fused in (("fused", True), ("plain", False))}
+        floor = {k: v / HBM_BPS * 1e3
+                 for k, v in mp.backward_floor_bytes(cfg, B * L, 2).items()}
+        row = dict(arch=arch, B=B, L=L, groups=G, dtype="bfloat16", ulps=ulps,
+                   max_ulps=max(ulps.values()),
+                   **{f"{k}_bwd_ms": v for k, v in bwd_ms.items()},
+                   **{f"{k}_bwd_bound_ms": v for k, v in floor.items()},
+                   **{f"{k}_fwd_ms": v for k, v in fwd_ms.items()},
+                   backward_ms=sum(bwd_ms.values()), backward_bound_ms=sum(floor.values()),
+                   forward_ms=sum(fwd_ms.values()), fused_fb_ms=fb_ms["fused"],
+                   plain_fb_ms=fb_ms["plain"], plain_forward_ms=plain_fwd_ms,
+                   fused_step_ms=2 * sum(fwd_ms.values()) + sum(bwd_ms.values()),
+                   plain_step_ms=fb_ms["plain"] + plain_fwd_ms)
+        rows.append(row)
+        say("[passes] backward {arch} B={B} L={L} G={groups} bf16: ".format(**row) + ", ".join(
+            f"{k} {bwd_ms[k]:.4f} ms (floor {floor[k]:.4f}, {floor[k] / bwd_ms[k]:.1%})"
+            for k in bwd_ms) + "; backward {backward_ms:.4f} ms against a floor of "
+            "{backward_bound_ms:.4f} ms; forward kernels {forward_ms:.4f} ms; a pass's forward "
+            "and backward summed: Functions {fused_fb_ms:.4f} ms (launched from Python, paced "
+            "by the host at this size), plain {plain_fb_ms:.4f} ms; a training step's layer "
+            "(forward, recompute, backward): kernels {fused_step_ms:.4f} ms (two forwards and a "
+            "backward), plain {plain_step_ms:.4f} ms; max ulps vs autograd through the plain "
+            "pass {ulps}".format(**row))
+        if row["max_ulps"] > PASS_ULPS:
+            fail(f"a Mamba pass backward at {arch} B={B} L={L} is {ulps} bf16 ulps from "
+                 f"autograd through the plain pass (limit {PASS_ULPS})")
+        del p, x, y, zx, xs, dzx, dh, dg, dskip, dconv
         torch.cuda.empty_cache()
 
 
@@ -2433,9 +2582,12 @@ def _train_cell(torch, report, cell):
         plain["backward"] += 1
         return plain_grads(*a)
 
+    from repro_torch.kernels.mamba_passes.kernel import mamba_passes_cuda
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(torch)
+    backwards = mamba_passes_cuda.backward_calls
     t0 = time.perf_counter()
     out = _with_patches(
         [(train, "make_train_step", recording), (ssd_ref, "ssd_chunked", counted_plain),
@@ -2445,14 +2597,19 @@ def _train_cell(torch, report, cell):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     c = _counts()
+    backwards = mamba_passes_cuda.backward_calls - backwards
     peak = torch.cuda.max_memory_allocated() / 1e9
     forward_plain = plain["calls"] - plain["backward"]
-    say(f"[{tag}] counts read after the {arch} training path: {c}; plain ssd_chunked in a "
-        f"forward: {forward_plain}, in the SSD backward: {plain['backward']}")
-    if c != dict(s2d_conv=0, decode_attn=0, ssd_scan=cell["ssd_calls"] * steps, mamba_passes=0,
-                 flash_attn=0):
-        fail(f"the {arch} training path launched {c}, not ssd_scan x {cell['ssd_calls']} x "
-             f"{steps} alone")
+    say(f"[{tag}] counts read after the {arch} training path: {c}; Mamba pass block backwards "
+        f"{backwards}; plain ssd_chunked in a forward: {forward_plain}, in the SSD backward: "
+        f"{plain['backward']}")
+    if c != dict(s2d_conv=0, decode_attn=0, ssd_scan=cell["ssd_calls"] * steps,
+                 mamba_passes=cell["pass_calls"] * steps, flash_attn=0):
+        fail(f"the {arch} training path launched {c}, not ssd_scan x {cell['ssd_calls']} and "
+             f"mamba_passes x {cell['pass_calls']} x {steps} alone")
+    if backwards != cell["pass_calls"] // 2 * steps:
+        fail(f"the {arch} training path ran {backwards} Mamba pass block backwards, not "
+             f"{cell['pass_calls'] // 2} x {steps}")
     if forward_plain:
         fail(f"the {arch} training path ran the plain SSD scan {forward_plain} times in a forward")
     losses, lnv = out["losses"], float(np.log(cfg.vocab_size))
@@ -3678,6 +3835,7 @@ def main():
 
     phase_done("phase (iii)")
     mamba_passes_row(torch, report)
+    mamba_passes_backward_row(torch, report)
     phase_done("phase (iii.b)")
     flash_attn_row(torch, report)
     phase_done("phase (iii.c)")

@@ -14,7 +14,8 @@ routes a call on what its inputs show, by one rule:
   products;
 * a call that autograd records (:func:`recording`) goes where the
   operation has a backward: the plain version, or a Function around the
-  kernel whose backward is written (``ssd_scan.ops.SSDScan``);
+  kernel whose backward is written (``ssd_scan.ops.SSDScan``, and the
+  Mamba passes' three in ``mamba_passes.kernel.mamba_passes_grad``);
 * every other tensor goes to the kernel, which launches or raises.  There
   is no fallback.
 

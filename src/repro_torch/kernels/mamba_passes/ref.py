@@ -5,8 +5,10 @@ rmsnorm, the input projection, the causal conv (a sum of W shifted products
 in x's dtype), ``+ conv_b`` (promoting to f32), silu, softplus and ``dt·A``,
 the scan, the D skip in f32, the ``silu(z)`` gate, the out rmsnorm, the
 output projection and the residual add.  It is the CPU's and ``meta``'s
-route, and the training route (autograd differentiates it as it is), and
-the reference the kernels of :mod:`.kernel` are held to.
+route (autograd differentiates it as it is there), and the reference the
+kernels of :mod:`.kernel`, and autograd through it the reference their
+backward kernels, are held to, pass by pass (``rmsnorm``,
+:func:`conv_pass`, :func:`gate_pass`).
 
 ``scan`` is the SSD scan the caller passes (``kernels.ssd_scan.ops.ssd_scan``
 from the model).  :func:`split_in_proj` and :func:`ssm_from_xbc` are shared
@@ -79,6 +81,32 @@ def gated_norm(cfg: ModelConfig, p: Params, y: torch.Tensor) -> torch.Tensor:
     return (yg.reshape(y.shape) * p["out_norm"]["scale"]).to(y.dtype)
 
 
+def conv_pass(cfg: ModelConfig, p: Params, zxbcdt: torch.Tensor, dtype: torch.dtype):
+    """The causal depthwise conv (width W) over the (x, B, C) columns of the
+    input projection ``zxbcdt``, ``+ conv_b`` and silu, and dt: ``(xh, log_a,
+    B, C, dt)`` as :func:`ssm_from_xbc` gives them.  The conv is in zxbcdt's
+    dtype; ``+ conv_b`` (f32) promotes to f32 as in JAX, silu's output is
+    rounded to ``dtype``."""
+    _, xbc, dt_raw = split_in_proj(cfg, zxbcdt)
+    W, L = cfg.ssm_conv_width, xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, W - 1, 0))
+    conv = sum(pad[:, i : i + L, :] * p["conv_w"][i] for i in range(W))
+    xbc = F.silu((conv + p["conv_b"]).float()).to(dtype)
+    return ssm_from_xbc(cfg, p, xbc, dt_raw)
+
+
+def gate_pass(cfg: ModelConfig, p: Params, y: torch.Tensor, xh: torch.Tensor,
+              zxbcdt: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The D skip (f32) on the scan's output ``y [B, L, H, P]``, the
+    ``silu(z)`` gate (z the first d_inner columns of ``zxbcdt``) in ``dtype``
+    and the out-norm: the output projection's input ``[B, L, d_inner]``."""
+    z = split_in_proj(cfg, zxbcdt)[0]
+    y = y + p["D"][None, None, :, None] * xh.float()
+    y = y.reshape(y.shape[0], y.shape[1], cfg.d_inner)
+    y = y.to(dtype) * F.silu(z.float()).to(dtype)
+    return gated_norm(cfg, p, y)
+
+
 def mamba_passes(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  scan: Callable[..., torch.Tensor],
                  addend: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -86,24 +114,15 @@ def mamba_passes(cfg: ModelConfig, p: Params, x: torch.Tensor,
     ``scan(xh, log_a, B, C, dt, chunk)`` as its SSD scan; spans
     ``mamba.in_proj`` and ``mamba.out_proj`` around its projections.
     ``addend`` (x's shape), where given, is added to the input norm's
-    input, in x's dtype, and not to the residual."""
+    input, in x's dtype, and not to the residual.  Its three passes are
+    ``rmsnorm``, :func:`conv_pass` and :func:`gate_pass`."""
     res = x
     h = rmsnorm(p["norm"], x if addend is None else x + addend, cfg.norm_eps)
     with span("mamba.in_proj"):
         zxbcdt = linear(p["in_proj"], h)
-    z, xbc, dt_raw = split_in_proj(cfg, zxbcdt)
-    # causal depthwise conv1d (width W) over the (x, B, C) channels; in
-    # x's dtype, then + conv_b (f32) promotes to f32 as in JAX
-    W, L = cfg.ssm_conv_width, xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, W - 1, 0))
-    conv = sum(pad[:, i : i + L, :] * p["conv_w"][i] for i in range(W))
-    xbc = F.silu((conv + p["conv_b"]).float()).to(x.dtype)
-    xh, log_a, Bm, Cm, dt = ssm_from_xbc(cfg, p, xbc, dt_raw)
+    xh, log_a, Bm, Cm, dt = conv_pass(cfg, p, zxbcdt, x.dtype)
     y = scan(xh, log_a, Bm, Cm, dt, cfg.ssm_chunk)
-    y = y + p["D"][None, None, :, None] * xh.float()
-    y = y.reshape(x.shape[0], x.shape[1], cfg.d_inner)
-    y = y.to(x.dtype) * F.silu(z.float()).to(x.dtype)
-    y = gated_norm(cfg, p, y)
+    y = gate_pass(cfg, p, y, xh, zxbcdt, x.dtype)
     with span("mamba.out_proj"):
         out = linear(p["out_proj"], y)
     return res + out

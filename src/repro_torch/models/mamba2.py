@@ -199,9 +199,9 @@ def mamba_block_apply(cfg: ModelConfig, p: Params, x: torch.Tensor,
     zamba2's shared block hands an ``addend``.  Spans
     ``mamba.block`` around it, ``mamba.in_proj`` and ``mamba.out_proj``
     around its projections; the scan's own is ``ssd_scan``'s.  Its passes
-    are ``kernels.mamba_passes.ops``'s: the plain ones (the CPU, ``meta``,
-    and training under autograd) or the fused kernels (a CUDA tensor with
-    grad off), around :func:`ssd_scan`."""
+    are ``kernels.mamba_passes.ops``'s: the plain ones (the CPU, ``meta``)
+    or the fused kernels (a CUDA tensor; under autograd each in a Function
+    whose backward is a kernel too), around :func:`ssd_scan`."""
     with span("mamba.block"):
         return mamba_passes(cfg, p, x, ssd_scan, addend)
 

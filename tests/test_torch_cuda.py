@@ -46,8 +46,18 @@ runs on a machine that has only torch:
   kernels' route no further than the plain route; a conv window shifted by a
   token read outside the limit; the wrappers' rejections; a reduced mamba2
   prefill on the fused route equal to the plain route's, with
-  ``mamba_passes_cuda.launches`` up by n_layers a prefill and not at all in
-  a training step;
+  ``mamba_passes_cuda.launches`` up by n_layers a prefill and by 2 n_layers
+  a training step (the forward and remat's recompute), ``backward_calls`` by
+  n_layers;
+* the passes' backward kernels, each Function's gradients of every input
+  and leaf against ``torch.autograd.grad`` through the matching plain pass
+  (``ref.rmsnorm``, ``conv_pass``, ``gate_pass``) on the same inputs and
+  output gradient, at mamba2-1.3b's and zamba2-7b's block widths (one and
+  two B/C groups), L in {1, 3, 257, 2048}: f32 within 1e-5 of max|ref|, bf16
+  within PASS_BWD_ULPS bf16 ulps of max|ref|; two runs equal bit for bit; the
+  conv's outputs' gradients a token late read outside the limit; a whole
+  block (zamba2-7b's with an addend) and a reduced mamba2 remat-full train
+  step against the plain passes on the card;
 * B and C in groups: the SSD kernel with G groups against the plain
   ``ssd_chunked`` at small, ragged and zamba2-7b's prefill shape (collapsed
   groups read far outside), one group bit-equal to the shared-B/C call, the
@@ -992,11 +1002,12 @@ def test_mamba2_prefill_on_the_fused_route_matches_the_plain_route(card, monkeyp
         assert _rel(got, want) <= 2e-2
 
 
-def test_mamba_passes_counter_rises_a_prefill_and_stays_in_training(card):
+def test_mamba_passes_counter_rises_a_prefill_and_a_training_step(card):
     """``mamba_passes_cuda.launches``: n_layers a prefill of a reduced mamba2
-    (bf16, remat full), nothing in a training step (loss and every gradient,
-    the forward and the recompute on the plain passes), while the SSD
-    kernel's counter rises by 2 n_layers there."""
+    (bf16, remat full), and 2 n_layers a training step (loss and every
+    gradient: the forward and remat's recompute, each through the
+    Functions), while ``backward_calls`` rises by n_layers there and the SSD
+    kernel's counter by 2 n_layers."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1017,11 +1028,235 @@ def test_mamba_passes_counter_rises_a_prefill_and_stays_in_training(card):
     leaves = tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
-    ssd = ssd_scan_cuda.launches
+    ssd, bwd = ssd_scan_cuda.launches, mamba_passes_cuda.backward_calls
     loss = model.loss(params, {"tokens": tok[:, :-1], "labels": tok[:, 1:]})
     torch.autograd.grad(loss, leaves)
-    assert mamba_passes_cuda.launches == before + cfg.n_layers
+    assert mamba_passes_cuda.launches == before + 3 * cfg.n_layers
+    assert mamba_passes_cuda.backward_calls == bwd + cfg.n_layers
     assert ssd_scan_cuda.launches == ssd + 2 * cfg.n_layers
+
+
+# ------------------------------------------------ the passes' backward ---
+
+PASS_BWD_ARCHS = ("mamba2-1.3b", "zamba2-7b")  # zamba2-7b: two B/C groups and an addend
+PASS_BWD_ULPS = 4  # bf16 gradients vs autograd through the plain passes: ulps of max|ref|
+PASS_BWD_F32 = 1e-5  # f32 gradients: of max|ref|
+
+
+def _pass_grads(card, arch, L, dtype, seed=0):
+    """A block of ``arch`` at B=1 (``_pass_block``), each pass's inputs (x;
+    the input projection zxbcdt of the plain norm of x; the scan's output y
+    and the plain conv's x) and a random gradient of each pass's outputs."""
+    from repro_torch.kernels.mamba_passes import ref
+    from repro_torch.models.common import linear, rmsnorm
+
+    cfg, p, x, y = _pass_block(card, arch, 1, L, dtype, seed)
+    G = ref.ssm_groups(cfg)
+    with torch.no_grad():
+        zx = linear(p["in_proj"], rmsnorm(p["norm"], x, cfg.norm_eps))
+        xs = ref.conv_pass(cfg, p, zx, dtype)[0].reshape(1, L, cfg.d_inner).contiguous()
+    gen = torch.Generator(device=card).manual_seed(seed + 1)
+
+    def draw(shape, dt=dtype):
+        return torch.randn(shape, generator=gen, device=card).to(dt)
+
+    bc = (1, L, cfg.ssm_state) if G == 1 else (1, L, G, cfg.ssm_state)
+    H = cfg.ssm_nheads
+    grads = dict(h=draw(x.shape), out=draw((1, L, cfg.d_inner)),
+                 conv=(draw((1, L, cfg.d_inner)), draw(bc), draw(bc),
+                       draw((1, L, H), torch.float32), draw((1, L, H), torch.float32)))
+    return cfg, p, dict(x=x, zx=zx, y=y, xs=xs), grads
+
+
+def _norm_grads(cfg, p, io, grads, fused):
+    """(dx, d scale) of the input norm: ``RMSNormFn`` or the plain rmsnorm."""
+    from repro_torch.kernels.mamba_passes.kernel import RMSNormFn
+    from repro_torch.models.common import rmsnorm
+
+    x, s = (t.detach().clone().requires_grad_(True) for t in (io["x"], p["norm"]["scale"]))
+    h = (RMSNormFn.apply(x, s, cfg.norm_eps) if fused
+         else rmsnorm({"scale": s}, x, cfg.norm_eps))
+    return dict(zip(("x", "scale"), torch.autograd.grad(h, (x, s), grads["h"])))
+
+
+def _conv_grads(cfg, p, io, grads, fused, shift=0):
+    """The gradients of zxbcdt (its xBC and dt columns), conv_w, conv_b,
+    dt_bias and A_log: ``ConvSiluFn`` (its outputs' gradients ``shift``
+    tokens later where given: the planted fault) or the plain conv pass."""
+    from repro_torch.kernels.mamba_passes import kernel, ref
+
+    names = ("conv_w", "conv_b", "dt_bias", "A_log")
+    ts = [t.detach().clone().requires_grad_(True) for t in [io["zx"]] + [p[k] for k in names]]
+    G, Din = ref.ssm_groups(cfg), cfg.d_inner
+    gs = grads["conv"]
+    if fused:
+        outs = kernel.ConvSiluFn.apply(*ts, Din, cfg.ssm_state, cfg.ssm_nheads, G,
+                                       kernel.Link())
+        if shift:
+            gs = tuple(torch.cat([torch.zeros_like(g[:, :shift]), g[:, :-shift]], dim=1)
+                       for g in gs)
+    else:
+        xh, log_a, Bm, Cm, dt = ref.conv_pass(cfg, dict(zip(names, ts[1:])), ts[0],
+                                              io["zx"].dtype)
+        outs = (xh.reshape(*xh.shape[:2], Din), Bm, Cm, dt, log_a)
+    got = torch.autograd.grad(outs, ts, gs)
+    return dict(zxbcdt=got[0][..., Din:], **dict(zip(names, got[1:])))
+
+
+def _gate_grads(cfg, p, io, grads, fused):
+    """The gradients of y, x (the D skip's share), z, D and the out norm's
+    scale: ``GateNormFn`` (x's and z's through its ``Link``) or the plain
+    gate pass."""
+    from repro_torch.kernels.mamba_passes import kernel, ref
+
+    ts = [t.detach().clone().requires_grad_(True) for t in (
+        io["y"], io["xs"], io["zx"], p["D"], p["out_norm"]["scale"])]
+    Din = cfg.d_inner
+    if fused:
+        link = kernel.Link()
+        g = kernel.GateNormFn.apply(*ts, cfg.norm_eps, cfg.ssm_headdim, ref.ssm_groups(cfg),
+                                    link)
+        dy, dD, ds = torch.autograd.grad(g, (ts[0], ts[3], ts[4]), grads["out"])
+        return dict(y=dy, x=link.dx, z=link.dzx[..., :Din], D=dD, scale=ds)
+    g = ref.gate_pass(cfg, {"D": ts[3], "out_norm": {"scale": ts[4]}}, ts[0],
+                      ts[1].view(ts[0].shape), ts[2], ts[0].dtype)
+    dy, dx, dz, dD, ds = torch.autograd.grad(g, ts, grads["out"])
+    return dict(y=dy, x=dx, z=dz[..., :Din], D=dD, scale=ds)
+
+
+def _pass_readings(card, arch, L, dtype, seed=0):
+    """{pass.tensor: (fused, plain)} of every input's and leaf's gradient."""
+    cfg, p, io, grads = _pass_grads(card, arch, L, dtype, seed)
+    out = {}
+    for name, fn in (("norm", _norm_grads), ("conv", _conv_grads), ("gate", _gate_grads)):
+        got, want = fn(cfg, p, io, grads, True), fn(cfg, p, io, grads, False)
+        out.update({f"{name}.{k}": (got[k], want[k]) for k in want})
+    return out
+
+
+def _grad_gap(got, want, dtype):
+    """max|got - want| in bf16 ulps of max|want| (bf16 activations), or over
+    max|want| (f32)."""
+    return _ulps(got, want) if dtype == torch.bfloat16 else _rel(got.float(), want.float())
+
+
+@pytest.mark.parametrize("L", [1, 3, 257, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", PASS_BWD_ARCHS)
+def test_mamba_pass_backward_kernels_have_the_plain_gradient(card, arch, dtype, L):
+    """Each Function's gradients (every input and leaf) against
+    ``torch.autograd.grad`` through the matching plain pass, fed the same
+    inputs and output gradient: f32 within 1e-5 of max|ref| (the same
+    arithmetic, sums in another order); bf16 within PASS_BWD_ULPS bf16 ulps
+    of max|ref| (the plain backward rounds its intermediates to bf16, the
+    kernels keep f32 and round each output once).  Each gradient has its
+    input's dtype."""
+    limit = PASS_BWD_ULPS if dtype == torch.bfloat16 else PASS_BWD_F32
+    for name, (got, want) in _pass_readings(card, arch, L, dtype).items():
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        gap = _grad_gap(got, want, dtype)
+        assert gap <= limit, (name, gap)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_pass_backward_is_deterministic(card, dtype):
+    """Two runs of each backward kernel on the same inputs give equal bits:
+    the parameter gradients' partial sums are added in a fixed order."""
+    first = _pass_readings(card, "zamba2-7b", 257, dtype)
+    second = _pass_readings(card, "zamba2-7b", 257, dtype)
+    for name in first:
+        assert torch.equal(first[name][0], second[name][0]), name
+
+
+def test_mamba_pass_backward_limit_reads_a_conv_gradient_shifted_by_a_token(card):
+    """The planted fault: the conv's backward fed its outputs' gradients one
+    token late reads far outside PASS_BWD_ULPS on the xBC columns and on
+    conv_w."""
+    cfg, p, io, grads = _pass_grads(card, "mamba2-1.3b", 257, torch.bfloat16)
+    got = _conv_grads(cfg, p, io, grads, True, shift=1)
+    want = _conv_grads(cfg, p, io, grads, False)
+    for k in ("zxbcdt", "conv_w"):
+        assert _ulps(got[k], want[k]) > 10 * PASS_BWD_ULPS, k
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("arch", PASS_BWD_ARCHS)
+def test_mamba_block_backward_on_the_functions_matches_the_plain_route(card, monkeypatch, arch,
+                                                                       dtype, tol):
+    """A whole block under autograd (zamba2-7b's with an addend): the
+    Functions' route (one block call and one block backward counted) against
+    the plain passes on the card (``ops.PLAIN_DEVICES`` widened to
+    ``cuda``), the same SSD Function in both: the gradients of x, the addend
+    and every leaf within ``tol`` of max|ref| (f32: summation order through
+    the scan's backward; bf16: the two routes' rounding points)."""
+    from repro_torch.kernels.mamba_passes import ops
+    from repro_torch.kernels.mamba_passes.kernel import mamba_passes_cuda
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, p, x, _ = _pass_block(card, arch, 2, 512, dtype)
+    gen = torch.Generator(device=card).manual_seed(7)
+    addend = (torch.randn(x.shape, generator=gen, device=card).to(dtype)
+              if arch == "zamba2-7b" else None)
+    r = torch.randn(x.shape, generator=gen, device=card)
+
+    def grads():
+        xs = x.clone().requires_grad_(True)
+        ad = None if addend is None else addend.clone().requires_grad_(True)
+        ps = tree_map(lambda t: t.detach().clone().requires_grad_(True), p)
+        out = ops.mamba_passes(cfg, ps, xs, ssd_scan, ad)
+        wrt = [xs] + ([] if ad is None else [ad]) + tree_leaves(ps)
+        return torch.autograd.grad((out.float() * r).sum(), wrt)
+
+    before = (mamba_passes_cuda.launches, mamba_passes_cuda.backward_calls)
+    got = grads()
+    assert (mamba_passes_cuda.launches - before[0],
+            mamba_passes_cuda.backward_calls - before[1]) == (1, 1)
+    monkeypatch.setattr(ops, "PLAIN_DEVICES", ("cpu", "meta", "cuda"))
+    want = grads()
+    assert (mamba_passes_cuda.launches, mamba_passes_cuda.backward_calls) == (
+        before[0] + 1, before[1] + 1)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and _rel(g.float(), w.float()) <= tol, i
+
+
+def test_mamba2_train_step_on_the_functions_matches_the_plain_route(card, monkeypatch):
+    """A reduced mamba2 (f32, remat full) train step on the card: the
+    Functions' route against the plain passes on the card (``ops.PLAIN_DEVICES``
+    widened to ``cuda``), loss and every gradient within atol 2e-4, rtol
+    2e-3; ``launches`` up by 2 n_layers and ``backward_calls`` by n_layers on
+    the Functions, neither on the plain route."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_passes import ops
+    from repro_torch.kernels.mamba_passes.kernel import mamba_passes_cuda
+    from repro_torch.models.model_api import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("mamba2-1.3b").reduced(dtype="float32"), remat=True,
+                              remat_policy="full")
+    model = build_model(cfg, card)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    tok = torch.randint(0, cfg.vocab_size, (2, 4 * cfg.ssm_chunk + 1), device=card,
+                        generator=torch.Generator(device=card).manual_seed(1))
+
+    def step():
+        ps = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+        loss = model.loss(ps, {"tokens": tok[:, :-1], "labels": tok[:, 1:]})
+        return loss, torch.autograd.grad(loss, tree_leaves(ps))
+
+    before = (mamba_passes_cuda.launches, mamba_passes_cuda.backward_calls)
+    got_loss, got = step()
+    assert (mamba_passes_cuda.launches - before[0],
+            mamba_passes_cuda.backward_calls - before[1]) == (2 * cfg.n_layers, cfg.n_layers)
+    monkeypatch.setattr(ops, "PLAIN_DEVICES", ("cpu", "meta", "cuda"))
+    counts = (mamba_passes_cuda.launches, mamba_passes_cuda.backward_calls)
+    want_loss, want = step()
+    assert (mamba_passes_cuda.launches, mamba_passes_cuda.backward_calls) == counts
+    torch.testing.assert_close(got_loss, want_loss, atol=2e-4, rtol=2e-3)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-3)
 
 
 # ------------------------------------------- B/C in groups, and zamba2-7b ---
