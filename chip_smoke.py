@@ -123,8 +123,9 @@ Phases, each on lines of its own; any failure exits non-zero:
    ``torch.profiler`` (the device's busy share, the kernel's share of
    device time);
    (iii.b) the Mamba block's pass kernels (``mamba_passes_row``) at the
-   prefill cell's shape (mamba2-1.3b, B=64, L=4096) and at zamba2-2.7b's
-   (B=8, L=4096), bf16: each of the three kernels and the residual add
+   prefill cell's shape (mamba2-1.3b, B=64, L=4096) and at zamba2-2.7b's,
+   zamba2-7b's and nemotron-3-nano-30b-a3b's (B=8, L=4096; two and eight
+   B/C groups), bf16: each of the three kernels and the residual add
    timed (CUDA events) beside its byte floor (``kernel.floor_bytes`` at
    3.35 TB/s), the plain passes (``ref.mamba_passes`` with the scan's
    output given, less its two projections) and ``F.rms_norm`` as the
@@ -154,7 +155,19 @@ Phases, each on lines of its own; any failure exits non-zero:
    calls); a build with a planted fault (the middle tile of keys left out
    of rows that read 32 tiles or more) read above four times that limit;
    in f32 on two rows (the benchmark's float32 check) the plain route: no
-   launch, bit for bit ``common._flash_attention``, timed;
+   launch, bit for bit ``common._flash_attention``, timed; then the kernel
+   at nemotron-3-nano-30b-a3b's site (``flash_gqa_row``: B=8, L=4096, 32
+   query heads over 2 KV heads of 128, causal, scale Dh^-1/2), one launch,
+   held to the plain route row by row as above and timed beside its bound
+   and the plain route;
+   (iii.d) nemotron-3-nano-30b-a3b's dropless MoE layer (``moe_grouped_row``)
+   at its published widths on the benchmark item's 32,768 tokens, bf16: the
+   grouped route's expert outputs held to the plain route's within 1e-2 of
+   max|ref|; the router, the grouped route, its two grouped GEMMs and relu²
+   (their operands taken from the route's own calls), the combine, the
+   shared expert and the layer timed, the GEMMs beside their bound, with a
+   per-expert matmul loop over the same sorted rows and the plain route as
+   yardsticks;
    (iv) ssm decode: ``serve.decode`` of the same model, B=8, 256 greedy
    tokens: no SSD or decode-attention launch (the recurrent step uses
    no kernel); ms/token, tokens/s, and under ``torch.profiler`` over 64
@@ -383,11 +396,13 @@ SSD_SHAPES = [  # (Bt, L, H, P, N, Q): tests/test_kernels.py, then the prefill p
     (1, 64, 1, 128, 64, 64), (8, 4096, 64, 64, 128, 256), (8, 4096, 80, 64, 64, 256),
 ]
 #: (Bt, L, H, P, N, Q, G): B and C in G groups, head h reading group h G / H: zamba2-7b's
-SSD_GROUPED_SHAPES = [(8, 4096, 112, 64, 64, 256, 2)]
-#: the SSD shapes of the prefill paths: mamba2-1.3b's (the kernels line's), zamba2-2.7b's
-#: and zamba2-7b's (in its two groups)
+#: and nemotron-3-nano-30b-a3b's (eight groups, chunk 128)
+SSD_GROUPED_SHAPES = [(8, 4096, 112, 64, 64, 256, 2), (8, 4096, 64, 64, 128, 128, 8)]
+#: the SSD shapes of the prefill paths: mamba2-1.3b's (the kernels line's), zamba2-2.7b's,
+#: zamba2-7b's (in its two groups) and nemotron-3-nano-30b-a3b's (in its eight)
 SSD_PATHS = {(8, 4096, 64, 64, 128, 256): "mamba2-1.3b", (8, 4096, 80, 64, 64, 256): "zamba2-2.7b",
-             (8, 4096, 112, 64, 64, 256): "zamba2-7b"}
+             (8, 4096, 112, 64, 64, 256): "zamba2-7b",
+             (8, 4096, 64, 64, 128, 128): "nemotron-3-nano-30b-a3b"}
 # SSD scan vs ssd_chunked, max|d| / max|ref|: f32 at the test shapes (test_kernels.py),
 # f32 at the prefill shape (cumsum of 256 log-decays in another order), bf16 output
 SSD_TOL = {"float32": 1e-5, "float32@prefill": 1e-4, "bfloat16": 2e-2}
@@ -464,6 +479,8 @@ FLASH_FAULT_TIMES = 4
 # the flash kernel's row: zamba2-7b's attention site (B=8, L=4096, 32 heads of 224,
 # causal, scale (Dh/2)^-1/2), bf16
 FLASH_SITE = dict(B=8, L=4096, H=32, Dh=224)
+# and nemotron-3-nano-30b-a3b's (32 query heads over 2 KV heads of 128, scale Dh^-1/2)
+FLASH_GQA_SITE = dict(B=8, L=4096, H=32, Hkv=2, Dh=128)
 # (ix) training at the published widths and depths through launch.train.run:
 # bf16 weights, f32 AdamW moments, remat "full", random weights of seed 0, no
 # checkpoint (ckpt_every past the last step).  train_4k (B=256, L=4096) cut to
@@ -1308,8 +1325,11 @@ def _kernels():
 
 def _attention_sites(cfg):
     """``flash_attention`` calls a prefill of ``cfg`` makes: one a layer
-    (dense, vlm, moe), one a shared-block site (hybrid, zamba2), the
-    encoder's layers once and the decoder's twice, self and cross (encdec)."""
+    (dense, vlm, moe), one a shared-block site (hybrid, zamba2), one an
+    attention layer of the pattern (nemotron_h), the encoder's layers once
+    and the decoder's twice, self and cross (encdec)."""
+    if cfg.family == "nemotron_h":
+        return cfg.layer_pattern.count("*")
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.hybrid_attn_every
     if cfg.family == "zamba2":
@@ -1396,9 +1416,11 @@ def _cross_path(torch, m, p, prompt, seed, extra=None, cache=None):
 
 
 # (iii.b) the Mamba block's pass kernels: (arch, B, L) of the prefill cell,
-# zamba2-2.7b's prefill and zamba2-7b's (two B/C groups; the port-only
-# lookup), bf16, one block at the published widths (seed 0)
-PASS_CELLS = [("mamba2-1.3b", 64, 4096), ("zamba2-2.7b", 8, 4096), ("zamba2-7b", 8, 4096)]
+# zamba2-2.7b's prefill, zamba2-7b's (two B/C groups) and nemotron-3-nano-30b-a3b's
+# (eight B/C groups, d_inner 4096 from 64 heads of 64; the port-only lookup), bf16,
+# one block at the published widths (seed 0)
+PASS_CELLS = [("mamba2-1.3b", 64, 4096), ("zamba2-2.7b", 8, 4096), ("zamba2-7b", 8, 4096),
+              ("nemotron-3-nano-30b-a3b", 8, 4096)]
 PASS_ULPS = 4  # each kernel vs the plain pass on its inputs: tests/test_torch_cuda.py's limit
 # (iii.b) the passes' backward: (arch, B, L) of (p)'s training step, and
 # zamba2-7b's block (two B/C groups) at the same B and L, bf16, seed 0
@@ -1721,6 +1743,93 @@ def mamba_passes_backward_row(torch, report):
         torch.cuda.empty_cache()
 
 
+def moe_grouped_row(torch, report, T=32768, seed=0):
+    """Phase (iii.d): nemotron-3-nano-30b-a3b's dropless MoE layer
+    (``models/moe_dropless``) at its published widths on ``T`` tokens (the
+    benchmark cell's item), bf16, the benchmark's weight scales: the grouped
+    route's expert outputs held to the plain route's (every expert over
+    every token, masked) within 1e-2 of max|ref|; each part timed with CUDA
+    events: the router, the grouped route (sort, gather, GEMMs, back), its
+    two grouped GEMMs and relu² on the operands its own ``torch._grouped_mm``
+    calls were given, beside their bound (4 rows D F FLOPs at the bf16 peak,
+    against every expert's weights and the rows in and out at the HBM
+    rate), a per-expert ``torch.matmul`` loop over the same sorted rows (its
+    group ends read back to the host), the combine, the shared expert and
+    the layer."""
+    from repro_torch.configs.port_only import get_port_config
+    from repro_torch.models import moe_dropless as md
+    from repro_torch.models.common import linear
+
+    cfg = get_port_config("nemotron-3-nano-30b-a3b")
+    D, E, F, Fs, k = (cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.moe_shared_d_ff,
+                      cfg.experts_per_token)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(shape, std, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
+
+    p = {"router": {"w": draw((D, E), 0.02, torch.float32)},
+         "e_bias": draw((E,), 0.01, torch.float32),
+         "w_up": draw((E, D, F), 0.02), "w_down": draw((E, F, D), 0.002),
+         "shared_up": {"w": draw((D, Fs), 0.02)}, "shared_down": {"w": draw((Fs, D), 0.002)}}
+    x = draw((T, D), 1.0)
+    calls = []
+
+    def spy(a, b, offs):
+        calls.append((a, b, offs))
+        return real(a, b, offs=offs)
+
+    real = torch._grouped_mm
+    with torch.no_grad():
+        ids, w = md.route(cfg, p, x)
+        y = _with_patch(torch, "_grouped_mm", spy, lambda: md.experts_grouped(p, x, ids))
+        (rows, w_up, ends), (h, w_down, _) = calls
+        want = md.experts_plain(p, x, ids)
+        rel = _max_rel(y, want)
+        del want
+
+        def per_expert():
+            out, st = torch.empty_like(rows), 0
+            for e, end in enumerate(ends.tolist()):
+                if end > st:
+                    out[st:end] = md.relu2(rows[st:end] @ w_up[e]) @ w_down[e]
+                st = end
+            return out
+
+        ms = dict(router=event_ms(torch, lambda: md.route(cfg, p, x), reps=5),
+                  experts=event_ms(torch, lambda: md.experts_grouped(p, x, ids), reps=5),
+                  up=event_ms(torch, lambda: real(rows, w_up, offs=ends), reps=5),
+                  relu2=event_ms(torch, lambda: md.relu2(h), reps=5),
+                  down=event_ms(torch, lambda: real(h, w_down, offs=ends), reps=5),
+                  combine=event_ms(torch, lambda: md.combine(y, w), reps=5),
+                  shared=event_ms(torch, lambda: linear(
+                      p["shared_down"], md.relu2(linear(p["shared_up"], x))), reps=5),
+                  layer=event_ms(torch, lambda: md.moe_apply(cfg, p, x[None]), reps=5),
+                  per_expert=event_ms(torch, per_expert, reps=3),
+                  plain=event_ms(torch, lambda: md.experts_plain(p, x, ids), reps=1))
+    R = T * k
+    t_ops = 4.0 * R * D * F / PEAK["bfloat16"]
+    t_bytes = (2 * E * D * F + 2 * R * D) * 2 / HBM_BPS
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    counts = torch.bincount(ids.reshape(-1), minlength=E)
+    gemms_ms = ms["up"] + ms["relu2"] + ms["down"]
+    row = dict(T=T, routes=R, rel=rel, bound_ms=bound_ms, gemms_ms=gemms_ms,
+               roofline=bound_ms / gemms_ms, largest_rows=int(counts.max()), mean_rows=R / E,
+               **{f"{name}_ms": v for name, v in ms.items()})
+    report["moe_grouped"] = row
+    say("[moe] nemotron-3-nano-30b-a3b T={T}, {routes} routes (largest expert {largest_rows}, "
+        "mean {mean_rows:.0f}): grouped GEMMs + relu² {gemms_ms:.4f} ms (up {up_ms:.4f}, relu² "
+        "{relu2_ms:.4f}, down {down_ms:.4f}) against a bound of {bound_ms:.4f} ms "
+        "({roofline:.1%}); the grouped route (sort, gather, GEMMs, back) {experts_ms:.4f} ms; "
+        "per-expert matmul loop {per_expert_ms:.4f} ms; plain route {plain_ms:.4f} ms; router "
+        "{router_ms:.4f}, combine {combine_ms:.4f}, shared expert {shared_ms:.4f}; the layer "
+        "{layer_ms:.4f} ms; grouped vs plain max rel {rel:.3e}".format(**row))
+    if not rel < 1e-2:
+        fail(f"the grouped experts are {rel:.3e} of max|ref| from the plain route (limit 1e-2)")
+    del p, x, y, rows, h, calls
+    torch.cuda.empty_cache()
+
+
 def flash_attn_row(torch, report):
     """Phase (iii.c): the flash kernel at zamba2-7b's attention site
     (``FLASH_SITE``, bf16, causal, scale (Dh/2)^-1/2), reached through
@@ -1804,6 +1913,49 @@ def flash_attn_row(torch, report):
         fail(f"the planted fault (the middle tile of keys left out of long rows) reads "
              f"{fault_rel:.3e}, not above {FLASH_FAULT_TIMES} x the limit {FLASH_TOL:.3e}")
     del q, k, v, q32, k32, v32
+    torch.cuda.empty_cache()
+
+
+def flash_gqa_row(torch, report):
+    """Phase (iii.c), GQA: the flash kernel at nemotron-3-nano-30b-a3b's
+    attention site (``FLASH_GQA_SITE``: 32 query heads over 2 KV heads of
+    128, bf16, causal, scale Dh^-1/2) through ``common.flash_attention``
+    with grad off (one launch), held to the plain route on the same inputs
+    row by row (``_row_rel``, ``FLASH_TOL``) and timed with CUDA events
+    beside its bound and the plain route."""
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.models.common import _flash_attention, flash_attention
+
+    B, L, H, Hkv, Dh = (FLASH_GQA_SITE[k] for k in ("B", "L", "H", "Hkv", "Dh"))
+    scale = Dh ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((B, L, H, Dh), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((B, L, Hkv, Dh), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    plain = lambda: _flash_attention(q, k, v, True, 512, 1024, scale)  # noqa: E731
+    want = plain()
+    before = kernel.flash_attn_cuda.launches
+    with torch.no_grad():
+        got = flash_attention(q, k, v, causal=True, scale=scale)
+    launched = kernel.flash_attn_cuda.launches - before
+    rel, rel_all = _row_rel(got, want), _max_rel(got, want)
+    del got, want
+    ms = event_ms(torch, lambda: kernel.flash_attn_cuda(q, k, v, True, scale), reps=10, warm=2)
+    plain_ms = event_ms(torch, plain, reps=2)
+    bound_ms, bound_by = _attention_bound(q, k, True)
+    row = report["flash_attn_gqa"] = dict(
+        B=B, L=L, H=H, Hkv=Hkv, Dh=Dh, dtype="bfloat16", launches=launched, row_rel=rel,
+        max_rel=rel_all, ms=ms, bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms,
+        roofline=bound_ms / ms)
+    say("[flash] nemotron-3-nano-30b-a3b's site B={B} L={L} H={H} over Hkv={Hkv} Dh={Dh} bf16 "
+        "causal: kernel {ms:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}; "
+        "{roofline:.1%}), the plain route {plain_ms:.4f} ms; against the plain route, max over "
+        "rows of max|d|/max|ref| {row_rel:.3e} (over the tensor {max_rel:.3e}); {launches} "
+        "launch through flash_attention".format(**row))
+    if not rel <= FLASH_TOL or launched != 1:
+        fail(f"the flash kernel at nemotron's site: {rel:.3e} of a row's max|ref| from the plain "
+             f"route (limit {FLASH_TOL:.3e}); {launched} launches, not 1")
+    del q, k, v
     torch.cuda.empty_cache()
 
 
@@ -3838,7 +3990,10 @@ def main():
     mamba_passes_backward_row(torch, report)
     phase_done("phase (iii.b)")
     flash_attn_row(torch, report)
+    flash_gqa_row(torch, report)
     phase_done("phase (iii.c)")
+    moe_grouped_row(torch, report)
+    phase_done("phase (iii.d)")
 
     # (iv) ssm decode: the O(1) recurrent step, which launches no kernel
     n_tok = SSM["tokens"]

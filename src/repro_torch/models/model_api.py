@@ -3,8 +3,9 @@
 Port of the JAX package's ``models/model_api.py``.  ``build_model(cfg,
 device)`` returns a :class:`Model` bundle for every family of the
 registry (dense, moe, ssm, hybrid, encdec, vlm) and for the port-only
-zamba2 (``configs.port_only``; no decode, no sharding specs), with the
-entry points the trainer and the serving loop share:
+zamba2 and nemotron_h (``configs.port_only``; no decode, no sharding specs;
+nemotron_h no loss), with the entry points the trainer and the serving loop
+share:
 
   init(generator) -> params                  (weights drawn on the generator's device)
   loss(params, batch) -> scalar              (training objective, f32)
@@ -38,7 +39,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import AX_DATA
 from repro_torch.launch.mesh import PartitionSpec as P
-from repro_torch.models import hybrid, mamba2, moe, transformer, vlm, whisper, zamba2
+from repro_torch.models import (hybrid, mamba2, moe, nemotron_h, transformer, vlm, whisper,
+                                zamba2)
 from repro_torch.models.common import dtype_of
 from repro_torch.models.config import ModelConfig
 from repro_torch.spans import span
@@ -98,6 +100,8 @@ class Model:
                 return hybrid.hybrid_prefill(cfg, params, tokens)
             if fam == "zamba2":
                 return zamba2.zamba2_prefill(cfg, params, tokens)
+            if fam == "nemotron_h":
+                return nemotron_h.nemotron_h_prefill(cfg, params, tokens)
             if fam == "encdec":
                 return whisper.encdec_prefill(cfg, params, batch["frames"], tokens)
             raise ValueError(fam)
@@ -174,6 +178,9 @@ FAMILIES = {
                whisper.encdec_cache_specs),
     "zamba2": (zamba2.init_zamba2_model, zamba2.zamba2_loss, zamba2.zamba2_init_cache,
                zamba2.zamba2_decode_step, zamba2.zamba2_param_specs, zamba2.zamba2_cache_specs),
+    "nemotron_h": (nemotron_h.init_nemotron_h_model, nemotron_h.nemotron_h_loss,
+                   nemotron_h.nemotron_h_init_cache, nemotron_h.nemotron_h_decode_step,
+                   nemotron_h.nemotron_h_param_specs, nemotron_h.nemotron_h_cache_specs),
 }
 
 

@@ -25,7 +25,19 @@ The spans and where they sit:
                            site (concat, norms, attention, MLP, adapter, the
                            site's linear)
 ``flash_attention``        ``models.common.flash_attention``, any family
+``nemotron_h.moe``         ``models.nemotron_h.moe_layer_apply``: a whole MoE
+                           layer (norm, router, dispatch, experts, combine,
+                           shared expert, residual)
+``moe.router``             ``models.moe_dropless.moe_apply``: the router's
+                           scores, top-k and weights
+``moe.experts``            the routed experts' up and down products and
+                           relu² (the grouped GEMMs on the grouped route)
+``moe.shared_expert``      the shared expert's two products and relu²
 =========================  ==================================================
+
+Counters beside them, kept on the host: ``models.zamba2.shared_block.calls``,
+``models.moe_dropless.calls`` (MoE layer calls) and
+``models.moe_dropless.routed_rows`` (routes dispatched to the experts).
 """
 
 from __future__ import annotations

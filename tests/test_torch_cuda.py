@@ -90,7 +90,17 @@ runs on a machine that has only torch:
   ``flash_attn_cuda.launches`` up by the sites a prefill and not at all
   under grad; a tiny zamba2 through the kernel equal to the plain route;
   a float32 call through ``common.flash_attention`` on the plain route,
-  bit for bit, with no launch.
+  bit for bit, with no launch; nemotron's attention shape (32 query heads
+  over 2 KV heads of 128, B=8, L=4096);
+* nemotron's dropless MoE layer (``models/moe_dropless``) at its published
+  widths on 32,768 tokens: the grouped route (two ``torch._grouped_mm``
+  calls) against the plain per-expert route on the card, the same bits on a
+  second call, no host sync between the router and the combine (CUDA's sync
+  debug mode set to raise), every route computed under a bias that sends
+  every token to the same six experts; the SSD kernel and the pass kernels
+  at its Mamba block (eight B/C groups, chunk 128); a tiny nemotron_h
+  prefilling on the card through every kernel against the float32
+  reference on the card's own routes.
 """
 
 import numpy as np
@@ -757,7 +767,8 @@ def _to_card(tree, card):
 
 # ------------------------------------------------ the Mamba block's passes ---
 
-PASS_ARCHS = ("mamba2-1.3b", "zamba2-2.7b", "zamba2-7b")  # zamba2-7b: two B/C groups
+# zamba2-7b: two B/C groups; nemotron: eight, and d_inner 4096 from 64 heads of 64
+PASS_ARCHS = ("mamba2-1.3b", "zamba2-2.7b", "zamba2-7b", "nemotron-3-nano-30b-a3b")
 PASS_ULPS = 4  # kernels vs the plain passes in bf16: ulps of max|ref|
 
 
@@ -1261,9 +1272,10 @@ def test_mamba2_train_step_on_the_functions_matches_the_plain_route(card, monkey
 
 # ------------------------------------------- B/C in groups, and zamba2-7b ---
 
-GROUPED_SSD = [  # (Bt, L, H, P, N, Q, G): small, ragged rows, and zamba2-7b's prefill shape
+GROUPED_SSD = [  # (Bt, L, H, P, N, Q, G): small, ragged rows, zamba2-7b's and nemotron's prefill
     (2, 64, 4, 8, 16, 16, 2), (1, 128, 8, 64, 64, 32, 4), (1, 30, 6, 16, 12, 6, 3),
     (2, 512, 4, 64, 128, 256, 2), (8, 4096, 112, 64, 64, 256, 2),
+    (8, 4096, 64, 64, 128, 128, 8),
 ]
 
 
@@ -1582,6 +1594,7 @@ FLASH_SHAPES = [
     (3, 4096, 4096, 5, 1, 128),
     (2, 600, 600, 16, 16, 256),
     (2, 448, 1500, 8, 8, 64),
+    (8, 4096, 4096, 32, 2, 128),  # nemotron's attention layers: GQA 16:1
 ]
 #: each output row (one query position of one head) against its own max|ref|,
 #: so that the rows that see many keys, whose outputs are near 1/sqrt(keys),
@@ -1767,3 +1780,143 @@ def test_zamba2_prefill_through_the_flash_kernel_equals_the_plain_route(card, mo
     want = model.prefill(params, {"tokens": toks})
     assert flash_attn_cuda.launches == before + cfg.n_sites
     assert _rel(got, want) <= 2e-2
+
+
+# ------------------------------------------------- nemotron's dropless MoE ---
+
+def _moe_layer(card, T=32768, seed=0):
+    """One MoE layer of nemotron-3-nano-30b-a3b at its published widths on
+    the card (the benchmark's scales) and normed tokens x [T, D] in bf16."""
+    from repro_torch.configs.port_only import get_port_config
+
+    cfg = get_port_config("nemotron-3-nano-30b-a3b")
+    g = torch.Generator(device=card).manual_seed(seed)
+    D, E, F, Fs = cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.moe_shared_d_ff
+
+    def draw(shape, std, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=card) * std).to(dtype)
+
+    p = {"router": {"w": draw((D, E), 0.02, torch.float32)},
+         "e_bias": draw((E,), 0.01, torch.float32),
+         "w_up": draw((E, D, F), 0.02), "w_down": draw((E, F, D), 0.002),
+         "shared_up": {"w": draw((D, Fs), 0.02)}, "shared_down": {"w": draw((Fs, D), 0.002)}}
+    return cfg, p, draw((T, D), 1.0)
+
+
+def test_moe_grouped_route_matches_the_plain_route_at_full_width(card, monkeypatch):
+    """32,768 tokens, 196,608 routes: the grouped route's expert outputs
+    against the plain route's (every expert over every token, masked) on the
+    same routes, within 1e-2 of max|ref| (bf16 products of K 2688 and 1856
+    summed in other orders); the layer the same bits on a second call."""
+    from repro_torch.models import moe_dropless
+
+    cfg, p, x = _moe_layer(card)
+    ids, w = moe_dropless.route(cfg, p, x)
+    got = moe_dropless.experts_grouped(p, x, ids)
+    want = moe_dropless.experts_plain(p, x, ids)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 1e-2
+    rows = moe_dropless.routed_rows
+    a = moe_dropless.moe_apply(cfg, p, x[None])
+    b = moe_dropless.moe_apply(cfg, p, x[None])
+    assert torch.equal(a, b) and moe_dropless.routed_rows - rows == 2 * ids.numel()
+
+
+def test_moe_grouped_route_makes_no_host_sync(card):
+    from repro_torch.models import moe_dropless
+
+    cfg, p, x = _moe_layer(card, T=4096)
+    moe_dropless.moe_apply(cfg, p, x[None])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ids, w = moe_dropless.route(cfg, p, x)
+        moe_dropless.combine(moe_dropless.experts_grouped(p, x, ids), w)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_moe_grouped_route_is_dropless_when_every_token_picks_six_experts(card):
+    from repro_torch.models import moe_dropless
+
+    cfg, p, x = _moe_layer(card, T=8192)
+    bias = torch.zeros_like(p["e_bias"])
+    bias[10:16] = 10.0
+    p = dict(p, e_bias=bias)
+    ids, _ = moe_dropless.route(cfg, p, x)
+    assert torch.equal(ids.sort(-1).values[0], torch.arange(10, 16, device=card))
+    got = moe_dropless.experts_grouped(p, x, ids)
+    want = moe_dropless.experts_plain(p, x, ids)
+    assert _rel(got, want) < 1e-2 and got.abs().amin(-1).gt(0).float().mean() > 0.99
+
+
+def test_nemotron_planted_flash_fault_moves_gqa_attention(card):
+    """The benchmark's planted flash fault (``h100bench/nemotron_faults``:
+    query head h reading KV head h % Hkv, a build of a changed copy of the
+    source) at nemotron's heads, 32 over 2 of 128: the sound kernel within
+    2e-2 of the plain route, the faulted one far outside it, and the sound
+    build back once the fault's context closes."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from h100bench import nemotron_faults
+    from repro_torch.models.common import _flash_attention, flash_attention
+
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn((2, 512, 32, 128), generator=g, device=card).bfloat16()
+    k, v = (torch.randn((2, 512, 2, 128), generator=g, device=card).bfloat16() for _ in range(2))
+    want = _flash_attention(q, k, v, True, 512, 1024, 128 ** -0.5)
+    with torch.no_grad():
+        sound = flash_attention(q, k, v, causal=True, scale=128 ** -0.5)
+        with nemotron_faults.planted("flash_wrong_kv_head", 0):
+            bad = flash_attention(q, k, v, causal=True, scale=128 ** -0.5)
+        after = flash_attention(q, k, v, causal=True, scale=128 ** -0.5)
+    assert _rel(sound, want) < 2e-2 < 0.2 < _rel(bad, want)
+    assert torch.equal(after, sound)
+
+
+def test_nemotron_prefill_on_the_card_matches_the_reference(card):
+    """A small nemotron_h whose widths every kernel takes (heads of 64 for
+    the SSD and flash kernels, groups of 8 B/C channels, experts of 128):
+    bf16 on the card through the pass, SSD, flash and grouped routes,
+    against the float32 reference on the card's own routes, within 5e-2."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from h100bench.reference import nemotron_h as ref
+    from repro_torch.configs.port_only import get_port_config
+    from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.models import moe_dropless, nemotron_h
+    from repro_torch.models.model_api import build_model
+
+    cfg = dataclasses.replace(
+        get_port_config("nemotron-3-nano-30b-a3b"), n_layers=5, layer_pattern="ME*ME",
+        d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, vocab_size=512, mamba_num_heads=8,
+        ssm_headdim=64, ssm_state=64, ssm_ngroups=2, ssm_chunk=64, n_experts=8,
+        experts_per_token=2, moe_d_ff=128, moe_shared_d_ff=256)
+    model = build_model(cfg, card)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 256), dtype=np.int64)).to(card)
+    launched = (flash_attn_cuda.launches, ssd_scan_cuda.launches)
+    grouped = []
+    real = moe_dropless.experts_grouped
+    moe_dropless.experts_grouped = lambda *a: grouped.append(1) or real(*a)
+    try:
+        routes = []
+        got = nemotron_h.nemotron_h_prefill(cfg, params, toks, routes)
+    finally:
+        moe_dropless.experts_grouped = real
+    assert (flash_attn_cuda.launches - launched[0], ssd_scan_cuda.launches - launched[1]) == (1, 2)
+    assert len(grouped) == 2
+    keys = ("d_model", "vocab_size", "n_heads", "n_kv_heads", "head_dim", "layer_pattern",
+            "mamba_num_heads", "ssm_headdim", "ssm_state", "ssm_ngroups", "ssm_conv_width",
+            "ssm_chunk", "n_experts", "experts_per_token", "moe_d_ff", "moe_shared_d_ff",
+            "routed_scaling_factor", "norm_eps")
+    w = dict({k: getattr(cfg, k) for k in keys}, family=cfg.family)
+    want = ref.prefill_logits(w, params, toks, routes=routes)
+    assert _rel(got, want) < 5e-2

@@ -158,9 +158,9 @@ def _config(arch):
 
 
 def _small(arch):
-    if arch in PORT_ARCHS:
+    if arch == "zamba2-7b":
         return dataclasses.replace(get_port_config(arch), dtype="bfloat16", **ZAMBA2_TINY)
-    return get_config(arch).reduced(dtype="bfloat16")
+    return _config(arch).reduced(dtype="bfloat16")
 
 
 @pytest.mark.parametrize("arch", ARCHS + PORT_ARCHS)
