@@ -10,9 +10,10 @@ repository beside it, it exits non-zero before printing any result.
 Phases, each on lines of its own; any failure exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit, and the torch device;
-2. build: the s2d-conv, decode-attention, SSD-scan and Mamba-pass
-   kernels compiled from ``csrc/s2d_conv.cu``, ``csrc/decode_attn.cu``,
-   ``csrc/ssd_scan.cu`` and ``csrc/mamba_passes.cu``, one ``nvcc`` each,
+2. build: the s2d-conv, decode-attention, SSD-scan, SSD-backward and
+   Mamba-pass kernels compiled from ``csrc/s2d_conv.cu``,
+   ``csrc/decode_attn.cu``, ``csrc/ssd_scan.cu``, ``csrc/ssd_scan_bwd.cu``
+   and ``csrc/mamba_passes.cu``, one ``nvcc`` each,
    started together (seconds of each);
 3. kernel: each kernel against its plain version on the card.
    s2d-conv (``ref.s2d_conv_ref``): at the ``tests/test_kernels.py``
@@ -266,8 +267,9 @@ Phases, each on lines of its own; any failure exits non-zero:
    2048, 32 heads over 8 of 64, vocab 128256; no kernel of the port) and
    (p) ``mamba2-1.3b`` (48 layers), whose SSD kernel must be called
    exactly 96 times a step (a forward and a remat recompute a layer, each
-   inside ``ops.SSDScan``) and the plain ``ssd_chunked`` never in a
-   forward (only in the Function's backward); the Mamba passes' kernels 96
+   inside ``ops.SSDScan``), the SSD backward kernel 48 times (the
+   Function's backward), the plain ``ssd_chunked`` and ``plain_grads``
+   never; the Mamba passes' kernels 96
    block calls a step (inside their Functions) and 48 block backwards.  Held: the first loss in
    (0.5 ln V, 2 ln V), every loss and grad norm finite, the optimiser's
    step counter 1..6.  Read: ms a step, tokens/s, peak memory, every
@@ -275,14 +277,18 @@ Phases, each on lines of its own; any failure exits non-zero:
    and backward apart from its AdamW update), the busy share, AdamW's
    share, attention's (its calls replayed alone, two forwards and a
    backward a layer) and the SSD kernel's plus its backward's (four
-   backward calls replayed alone: ms a layer).  Held in (p): those four
+   backward calls replayed alone through the backward kernel and through
+   ``plain_grads``: ms a layer each).  Held in (p): those four
    calls' saved inputs (bf16 x, B, C; f32 log_a, dt) through the kernel,
    each output within 2e-2 of max|ref| of the plain ``ssd_chunked`` on
    the same inputs, a planted fault (the state dropped between chunks)
    outside that, and the kernel, the plain version and the bound timed
-   at that shape.  Then, held: one mamba2 layer at its published widths
+   at that shape; the backward kernel on the same calls and output
+   gradients, bf16 gradients within 4 bf16 ulps of max|ref| of
+   ``plain_grads``'s and f32 ones within 1e-4, timed beside the plain
+   backward and its bound.  Then, held: one mamba2 layer at its published widths
    in f32 at (p)'s B=8, L=2048, the SSD Function's input and weight
-   gradients within 1e-4 of max|ref| of autograd through the plain
+   gradients (its backward the backward kernel) within 1e-4 of max|ref| of autograd through the plain
    ``ssd_chunked``, and a planted fault (the kernel's output without the
    Function) at least 100x that; the six families' reduced f32 train
    step (llama3.2-1b, qwen3-moe, mamba2, zamba2, whisper-base, llava) on
@@ -505,6 +511,10 @@ TRAIN_CELLS = [
 # state dropped between chunks) read outside it; the backward replayed alone
 # to time it (ms a layer)
 TRAIN_SSD_REPLAY = 4
+# the backward kernel on those calls against ops.plain_grads: bf16 gradients
+# within SSD_BWD_ULPS bf16 ulps of max|ref|, f32 ones within SSD_BWD_F32
+# (tests/test_torch_cuda.py's limits)
+SSD_BWD_ULPS, SSD_BWD_F32 = 4, 1e-4
 # (ix) one mamba2 layer at its published widths in f32 at (p)'s B=8, L=2048
 # (eight SSD chunks): the SSD Function's input and weight gradients against
 # autograd through the plain ssd_chunked, max|d| <= 1e-4 max|ref| a leaf (the
@@ -770,6 +780,35 @@ def ssd_floor(x, la, B, C, dt, Q):
         t_ops_ms=(ops_cb * (1 / PEAK[dn] if dn == "bfloat16" else f32_s)
                   + (ops_f32 - ops_cs) * f32_s + ops_cs * cs_s) * 1e3,
         cuda_core_bound_ms=max(t_bytes, (ops_cb / PEAK[dn] + ops_f32 / PEAK["float32"]) * 1e3))
+
+
+def ssd_bwd_floor(x, la, B, C, dt, Q):
+    """``t_bytes_ms`` and ``t_ops_ms`` of one SSD backward (``csrc/ssd_scan_bwd.cu``):
+    x, dy [Bt, L, H, P] and B, C in their dtype, log_a and dt f32 read once,
+    the five gradients written once.  The products its algorithm needs, causal
+    halves counted exactly (Q(Q+1)/2 pairs): C Bᵀ and, summed over a group's
+    heads, dGm B and dGmᵀ C once per (b, chunk, group); per (b, h, chunk) the
+    two chunk-local states, y recomputed (scores xdt and C S), dxdt (scoresᵀ
+    dy and dS'ᵀ B), dy xdtᵀ, and the state terms of dC and dB.  As in
+    :func:`ssd_floor`, an f32-accurate product takes the faster of the CUDA
+    cores and split TF32: three products where both operands are f32 (the
+    state of xdt, scores xdt, xdt dS'ᵀ), two where one is bf16 (exact in TF32)
+    and the decay can be applied to the output; C Bᵀ of bf16 at its peak."""
+    Bt, L, H, Pd = x.shape
+    N, G = B.shape[-1], (B.shape[2] if B.dim() == 4 else 1)
+    dn = str(x.dtype).split(".")[1]
+    nbytes = (4 * x.numel() * x.element_size() + 2 * (B.numel() + C.numel()) * B.element_size()
+              + 2 * (la.numel() + dt.numel()) * la.element_size())
+    n_chunks = Bt * (L // Q)
+    pairs, state = Q * (Q + 1), 2 * Q * N * Pd  # flops of a causal product over P or N; of a state
+    ops_cb = n_chunks * G * pairs * N
+    both_f32 = n_chunks * H * (2 * state + pairs * Pd)
+    one_exact = n_chunks * (H * (4 * state + 2 * pairs * Pd) + G * 2 * pairs * N)
+    f32_s = min(1 / PEAK["float32"], 3 / PEAK["tf32"])
+    ex_s = min(1 / PEAK["float32"], 2 / PEAK["tf32"]) if dn == "bfloat16" else f32_s
+    return dict(t_bytes_ms=nbytes / HBM_BPS * 1e3,
+                t_ops_ms=(ops_cb * (1 / PEAK[dn] if dn == "bfloat16" else f32_s)
+                          + both_f32 * f32_s + one_exact * ex_s) * 1e3)
 
 
 def ssd_state_dropped(scan, x, la, B, C, dt, chunk):
@@ -2713,6 +2752,8 @@ def _train_cell(torch, report, cell):
     widths = {k: getattr(cfg, k) for k in cell["widths"]}
     if widths != cell["widths"]:
         fail(f"{arch} is not at its published widths: {widths}")
+    from repro_torch.kernels.ssd_scan.kernel_bwd import ssd_scan_bwd_cuda
+
     make, chunked, plain_grads = train.make_train_step, ssd_ref.ssd_chunked, ssd_ops.plain_grads
     seen, plain = [], dict(calls=0, backward=0)
 
@@ -2739,7 +2780,7 @@ def _train_cell(torch, report, cell):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(torch)
-    backwards = mamba_passes_cuda.backward_calls
+    backwards, ssd_backwards = mamba_passes_cuda.backward_calls, ssd_scan_bwd_cuda.launches
     t0 = time.perf_counter()
     out = _with_patches(
         [(train, "make_train_step", recording), (ssd_ref, "ssd_chunked", counted_plain),
@@ -2750,11 +2791,11 @@ def _train_cell(torch, report, cell):
     wall = time.perf_counter() - t0
     c = _counts()
     backwards = mamba_passes_cuda.backward_calls - backwards
+    ssd_backwards = ssd_scan_bwd_cuda.launches - ssd_backwards
     peak = torch.cuda.max_memory_allocated() / 1e9
-    forward_plain = plain["calls"] - plain["backward"]
     say(f"[{tag}] counts read after the {arch} training path: {c}; Mamba pass block backwards "
-        f"{backwards}; plain ssd_chunked in a forward: {forward_plain}, in the SSD backward: "
-        f"{plain['backward']}")
+        f"{backwards}; SSD backward kernel {ssd_backwards}; plain ssd_chunked {plain['calls']}, "
+        f"plain SSD backward (plain_grads) {plain['backward']}")
     if c != dict(s2d_conv=0, decode_attn=0, ssd_scan=cell["ssd_calls"] * steps,
                  mamba_passes=cell["pass_calls"] * steps, flash_attn=0):
         fail(f"the {arch} training path launched {c}, not ssd_scan x {cell['ssd_calls']} and "
@@ -2762,8 +2803,12 @@ def _train_cell(torch, report, cell):
     if backwards != cell["pass_calls"] // 2 * steps:
         fail(f"the {arch} training path ran {backwards} Mamba pass block backwards, not "
              f"{cell['pass_calls'] // 2} x {steps}")
-    if forward_plain:
-        fail(f"the {arch} training path ran the plain SSD scan {forward_plain} times in a forward")
+    if ssd_backwards != cell["ssd_calls"] // 2 * steps:
+        fail(f"the {arch} training path launched the SSD backward kernel {ssd_backwards} times, "
+             f"not {cell['ssd_calls'] // 2} x {steps}")
+    if plain["calls"] or plain["backward"]:
+        fail(f"the {arch} training path ran the plain SSD scan {plain['calls']} times and its "
+             f"plain backward {plain['backward']} times")
     losses, lnv = out["losses"], float(np.log(cfg.vocab_size))
     gn, opt_steps = torch.stack(seen).cpu().numpy().T
     if len(losses) != steps or not np.isfinite(losses).all() or not np.isfinite(gn).all():
@@ -2778,7 +2823,7 @@ def _train_cell(torch, report, cell):
     line = dict(arch=arch, dtype=cfg.dtype, batch=B, seq=L, steps=steps, wall_s=wall,
                 step_ms=[t * 1e3 for t in out["step_s"]], ms_per_step=ms,
                 tokens_per_s=B * L / ms * 1e3, peak_mem_gb=peak, losses=losses,
-                grad_norms=gn.tolist(), launches=c)
+                grad_norms=gn.tolist(), launches=c, ssd_backward_launches=ssd_backwards)
     say("[{tag}] {arch} {dtype} B={batch} L={seq}, {steps} steps ({warm} to warm up): "
         "ms/step={ms_per_step:.3f} tokens/s={tokens_per_s:.1f} peak={peak_mem_gb:.2f} GB; "
         "losses {lo}; grad norms {gno}".format(
@@ -2811,23 +2856,24 @@ def _train_where(torch, cfg, params, cell, ms_per_step):
     for p in leaves:
         p.requires_grad_(True)
     flash, plain_grads = transformer.flash_attention, ssd_ops.plain_grads
+    ssd_bwd = ssd_ops.ssd_scan_bwd_cuda
     attn_calls, ssd_calls, grads = [], [], []
 
     def keep_flash(q, k, v, **kw):
         attn_calls.append((q.detach(), k.detach(), v.detach(), kw))
         return flash(q, k, v, **kw)
 
-    def keep_grads(inputs, needs, chunk, dy):
+    def keep_bwd(x, la, B, C, dt, dy, chunk, needs):
         if len(ssd_calls) < TRAIN_SSD_REPLAY:
-            ssd_calls.append(([t.detach() for t in inputs], needs, chunk, dy.detach()))
-        return plain_grads(inputs, needs, chunk, dy)
+            ssd_calls.append(([t.detach() for t in (x, la, B, C, dt)], needs, chunk, dy.detach()))
+        return ssd_bwd(x, la, B, C, dt, dy, chunk, needs)
 
     def fwd_bwd():
         loss = model.loss(params, batch)
         grads.append(torch.autograd.grad(loss, leaves))
 
     fb = device_activity(torch, lambda: _with_patches(
-        [(transformer, "flash_attention", keep_flash), (ssd_ops, "plain_grads", keep_grads)],
+        [(transformer, "flash_attention", keep_flash), (ssd_ops, "ssd_scan_bwd_cuda", keep_bwd)],
         fwd_bwd))
     it = iter(grads.pop())
     g = tree_map(lambda _: next(it), params)
@@ -2856,13 +2902,18 @@ def _train_where(torch, cfg, params, cell, ms_per_step):
     attn_ms = (sum(ms for _, ms in device_activity(torch, attn_fb).values())
                + sum(ms for _, ms in device_activity(torch, attn_f).values())) if first else 0.0
     del first
-    ssd_bwd = device_activity(torch, lambda: [plain_grads(*a) for a in ssd_calls])
-    ssd_bwd_layer = (sum(ms for _, ms in ssd_bwd.values()) / len(ssd_calls)) if ssd_calls else 0.0
+    # the backward kernel and the plain backward on the same calls, side by side
+    kernel_bwd = device_activity(torch, lambda: [ssd_bwd(*i, dy, q, n) for i, n, q, dy in ssd_calls])
+    plain_bwd = device_activity(torch, lambda: [plain_grads(*a) for a in ssd_calls])
+    ssd_bwd_layer = (sum(ms for _, ms in kernel_bwd.values()) / len(ssd_calls)) if ssd_calls else 0.0
+    ssd_bwd_plain_layer = (sum(ms for _, ms in plain_bwd.values()) / len(ssd_calls)
+                           if ssd_calls else 0.0)
     n_ssd_layers = cell["ssd_calls"] // 2
     if cell["ssd_calls"] and len(ssd_calls) != TRAIN_SSD_REPLAY:
         fail(f"the profiled {cfg.name} step kept {len(ssd_calls)} SSD calls, not "
              f"{TRAIN_SSD_REPLAY}")
     held = _train_ssd_held(torch, ssd_calls) if ssd_calls else None
+    bwd_held = _train_ssd_bwd_held(torch, ssd_calls) if ssd_calls else None
     del ssd_calls
     torch.cuda.empty_cache()
     top = sorted(fb.items(), key=lambda kv: -kv[1][1])[:6]
@@ -2873,9 +2924,10 @@ def _train_where(torch, cfg, params, cell, ms_per_step):
         optimizer_share=upd_ms / dev_ms if n_dev else None,
         attention_ms=attn_ms, attention_share=attn_ms / dev_ms if n_dev else None,
         ssd_forward_ms=ssd_fwd_ms, ssd_backward_ms_per_layer=ssd_bwd_layer,
+        ssd_backward_plain_ms_per_layer=ssd_bwd_plain_layer,
         ssd_forward_ms_per_call=ssd_fwd_ms / cell["ssd_calls"] if cell["ssd_calls"] else 0.0,
         ssd_share=(ssd_fwd_ms + ssd_bwd_layer * n_ssd_layers) / dev_ms if n_dev else None,
-        ssd_held=held, top_device=[dict(name=k, ops=n, ms=ms) for k, (n, ms) in top])
+        ssd_held=held, ssd_bwd_held=bwd_held, top_device=[dict(name=k, ops=n, ms=ms) for k, (n, ms) in top])
     if n_dev:
         say("[where] train {label} ({arch}, one step profiled): device {device_ms_per_step:.3f} ms "
             "a step = {device_busy_share:.4f} of the unprofiled wall a step; {device_ops_per_step} "
@@ -2883,8 +2935,9 @@ def _train_where(torch, cfg, params, cell, ms_per_step):
             "{optimizer_ms:.3f} ms = {optimizer_share:.4f}; attention (its calls replayed alone, "
             "two forwards and a backward a layer) {attention_ms:.3f} ms = {attention_share:.4f}; "
             "SSD kernel {ssd_forward_ms:.3f} ms ({ssd_forward_ms_per_call:.4f} ms a call) + SSD "
-            "backward (plain recompute and autograd, replayed alone) "
-            "{ssd_backward_ms_per_layer:.3f} ms a layer = {ssd_share:.4f} of device time".format(
+            "backward kernel (its calls replayed alone) {ssd_backward_ms_per_layer:.3f} ms a layer "
+            "= {ssd_share:.4f} of device time; the plain backward (recompute and autograd) on the "
+            "same calls {ssd_backward_plain_ms_per_layer:.3f} ms a layer".format(
                 label=cell["label"], arch=cfg.name, **where))
         for d in where["top_device"]:
             say(f"[where]   {d['ms']:.3f} ms in {d['ops']} x {d['name'][:100]}")
@@ -2936,11 +2989,55 @@ def _train_ssd_held(torch, calls):
     return row
 
 
+def _train_ssd_bwd_held(torch, calls):
+    """Phase (ix) (p): the SSD backward kernel on the calls of the profiled
+    step (the Function's saved inputs and output gradient): each call's five
+    gradients against ``ops.plain_grads`` on the same inputs, bf16 ones within
+    SSD_BWD_ULPS bf16 ulps of max|ref| and f32 ones within SSD_BWD_F32; the
+    kernel and the plain backward timed with CUDA events on the first call,
+    beside the kernel's bound."""
+    import math
+
+    from repro_torch.kernels.ssd_scan.kernel_bwd import ssd_scan_bwd_cuda
+    from repro_torch.kernels.ssd_scan.ops import plain_grads
+
+    def gap(got, want):
+        d = (got.float() - want.float()).abs().max().item()
+        m = want.float().abs().max().item()
+        if want.dtype == torch.bfloat16:
+            return d / 2.0 ** (math.floor(math.log2(m)) - 7), SSD_BWD_ULPS
+        return d / m, SSD_BWD_F32
+
+    gaps = []
+    for inputs, needs, chunk, dy in calls:
+        got = ssd_scan_bwd_cuda(*inputs, dy, chunk, needs)
+        want = plain_grads(inputs, needs, chunk, dy)
+        gaps.append([gap(g, w) for g, w in zip(got, want) if w is not None])
+    worst = max((g / lim, g, lim) for row in gaps for g, lim in row)
+    (x, la, B, C, dt), needs, chunk, dy = calls[0]
+    (Bt, L, H, Pd), N = x.shape, B.shape[-1]
+    row = dict(shape=f"Bt{Bt}.L{L}.H{H}.P{Pd}.N{N}.Q{chunk}", calls=len(calls),
+               gaps=[[g for g, _ in r] for r in gaps], worst_gap=worst[1], worst_limit=worst[2],
+               kernel_ms=event_ms(torch, lambda: ssd_scan_bwd_cuda(x, la, B, C, dt, dy, chunk,
+                                                                   needs), 5),
+               plain_ms=event_ms(torch, lambda: plain_grads((x, la, B, C, dt), needs, chunk, dy)))
+    row.update(ssd_bwd_floor(x, la, B, C, dt, chunk))
+    row["bound_ms"], row["bound_by"] = bound(row["t_bytes_ms"], row["t_ops_ms"])
+    say("[train] SSD backward kernel at (p)'s shape {shape}, {calls} calls of the profiled step: "
+        "worst gradient gap {worst_gap:.3e} (limit {worst_limit:.0e}: bf16 ulps of max|ref|, "
+        "or f32 max|d|/max|ref|); kernel_ms={kernel_ms:.5f} plain_ms={plain_ms:.5f} "
+        "bound_ms={bound_ms:.5f} ({bound_by})".format(**row))
+    if worst[0] > 1:
+        fail(f"the SSD backward kernel at (p)'s shape is {worst[1]:.3e} from the plain backward "
+             f"(> {worst[2]})")
+    return row
+
+
 def _train_layer_grads(torch, report):
     """Phase (ix): one mamba2 layer at its published widths in f32 at (p)'s
-    batch and length, the SSD Function's input and weight gradients against
-    autograd through the plain ``ssd_chunked``, and the planted fault (no
-    Function) read."""
+    batch and length, the SSD Function's input and weight gradients (its
+    backward the backward kernel, launched once) against autograd through
+    the plain ``ssd_chunked``, and the planted fault (no Function) read."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
@@ -2970,9 +3067,12 @@ def _train_layer_grads(torch, report):
     def detached(x_, la, B, C, dt, chunk):
         return ssd_scan_cuda(*(t.contiguous() for t in (x_, la, B, C, dt)), chunk)
 
-    before = ssd_scan_cuda.launches
+    from repro_torch.kernels.ssd_scan.kernel_bwd import ssd_scan_bwd_cuda
+
+    before, before_bwd = ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches
     got = grads(ssd_ops.ssd_scan)
     launched = ssd_scan_cuda.launches - before
+    launched_bwd = ssd_scan_bwd_cuda.launches - before_bwd
     ref = grads(ssd_chunked)
     fault = grads(detached)
 
@@ -2984,15 +3084,18 @@ def _train_layer_grads(torch, report):
     worst = max(range(len(names)), key=lambda i: sound[i])
     worst_fault = max(range(len(names)), key=lambda i: planted[i])
     line = dict(batch=cell["batch"], seq=cell["seq"], launches=launched,
+                backward_launches=launched_bwd,
                 rel=dict(zip(names, sound)), fault_rel=dict(zip(names, planted)))
     say(f"[train] SSD Function at one {cfg.name} layer, f32 B={cell['batch']} L={cell['seq']} "
-        f"({launched} kernel calls): gradients vs autograd through the plain ssd_chunked, worst "
+        f"({launched} kernel calls, {launched_bwd} backward kernel calls): gradients vs autograd "
+        f"through the plain ssd_chunked, worst "
         f"max|d|/max|ref| {sound[worst]:.3e} ({names[worst]}); the planted fault (the kernel's "
         f"output without the Function): worst {planted[worst_fault]:.3e} "
         f"({names[worst_fault]})")
     report["train_layer"] = line
-    if launched != 1:
-        fail(f"the mamba2 layer's SSD Function launched the kernel {launched} times, not once")
+    if launched != 1 or launched_bwd != 1:
+        fail(f"the mamba2 layer's SSD Function launched the kernel {launched} times and the "
+             f"backward kernel {launched_bwd} times, not once each")
     if sound[worst] > cell["tol"]:
         fail(f"SSD Function gradient of {names[worst]}: max|d|/max|ref| {sound[worst]:.3e} > "
              f"{cell['tol']}")
@@ -3365,6 +3468,7 @@ def main():
     from repro_torch.kernels.s2d_conv import kernel as s2d_kernel
     from repro_torch.kernels.s2d_conv.ref import s2d_conv_ref
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import kernel_bwd as ssd_bwd_kernel
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
     from repro_torch.launch import serve
     from repro_torch.models import mamba2, transformer
@@ -3399,7 +3503,7 @@ def main():
         return lib, time.perf_counter() - t0
 
     kernel_mods = {"s2d_conv": s2d_kernel, "decode_attn": dec_kernel, "ssd_scan": ssd_kernel,
-                   "mamba_passes": mp_kernel}
+                   "ssd_scan_bwd": ssd_bwd_kernel, "mamba_passes": mp_kernel}
     with ThreadPoolExecutor(len(kernel_mods)) as pool:
         futures = {name: pool.submit(timed_build, mod) for name, mod in kernel_mods.items()}
         built = {name: f.result() for name, f in futures.items()}

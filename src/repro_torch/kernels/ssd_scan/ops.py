@@ -6,10 +6,13 @@ call :func:`ssd_scan`, which routes by ``repro_torch.device``'s rule: the
 plain blocked version (:func:`.ref.ssd_chunked`), which autograd
 differentiates as it is, on :data:`PLAIN_DEVICES`; the hand-written kernel
 (:mod:`.kernel`) on every other device.  While autograd records, the
-kernel runs inside :class:`SSDScan`, whose backward is the gradient of
-the plain ``ssd_chunked`` recomputed from the saved inputs: the function
-the JAX package differentiates, since it has no backward kernel.  So no
-CUDA tensor reaches the plain version in a forward.
+kernel runs inside :class:`SSDScan`, whose backward routes by the same
+rule: on :data:`PLAIN_DEVICES`, :func:`plain_grads` (autograd through the
+plain ``ssd_chunked`` recomputed from the saved inputs: the function the
+JAX package differentiates, since it has no backward kernel); on every
+other device, the hand-written backward kernel
+(:func:`.kernel_bwd.ssd_scan_bwd_cuda`), which computes the same
+gradients.  So no CUDA tensor reaches the plain version.
 
 The JAX switch's ``backend`` and ``interpret`` choices have no
 counterpart: the plain version and the oracle are called from
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.device import PLAIN_DEVICES, recording
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan.kernel_bwd import ssd_scan_bwd_cuda
 from repro_torch.spans import span
 
 
@@ -44,9 +48,10 @@ def plain_grads(inputs: Sequence[torch.Tensor], needs: Sequence[bool], chunk: in
 
 
 class SSDScan(torch.autograd.Function):
-    """The kernel's forward under autograd; the plain version's backward,
-    inside the span ``ssd_scan.backward``.  ``backward_calls`` counts the
-    backward's calls since the process began."""
+    """The kernel's forward under autograd; its backward, inside the span
+    ``ssd_scan.backward``, the backward kernel on a CUDA tensor and
+    :func:`plain_grads` on :data:`PLAIN_DEVICES`.  ``backward_calls``
+    counts the backward's calls since the process began."""
 
     backward_calls = 0
 
@@ -59,9 +64,13 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         SSDScan.backward_calls += 1
+        needs = ctx.needs_input_grad[:5]
         with span("ssd_scan.backward"):
-            return plain_grads(ctx.saved_tensors, ctx.needs_input_grad[:5], ctx.chunk,
-                               dy) + (None,)
+            if dy.device.type in PLAIN_DEVICES:
+                grads = plain_grads(ctx.saved_tensors, needs, ctx.chunk, dy)
+            else:
+                grads = ssd_scan_bwd_cuda(*ctx.saved_tensors, dy, ctx.chunk, needs)
+        return grads + (None,)
 
 
 def ssd_scan(x: torch.Tensor, log_a: torch.Tensor, B: torch.Tensor, C: torch.Tensor,

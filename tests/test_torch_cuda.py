@@ -36,6 +36,16 @@ runs on a machine that has only torch:
   reduced mamba2 prefill through the kernel, one call per layer; under
   grad, the kernel inside ``ops.SSDScan`` with the plain version's
   gradient, and a reduced mamba2 train step equal to the CPU's;
+* the SSD backward kernel (``csrc/ssd_scan_bwd.cu``): its five gradients
+  against ``ops.plain_grads`` on the same inputs and output gradient at
+  the ``tests/test_kernels.py`` shapes, ragged rows, (p)'s training shape,
+  zamba2-7b's (H 112, G 2) and nemotron's (G 8, Q 128): f32 within 1e-4 of
+  max|ref|, bf16 x, B, C gradients within 4 bf16 ulps and the f32 log_a,
+  dt ones within 1e-4; two planted faults (dS' not carried between chunks,
+  dlog_a without its reverse cumsum), each built from a changed copy of the
+  source, read outside those limits; a subset of ``needs``; one launch a
+  backward and the forward's count unmoved; equal bits over two calls; the
+  wrapper's refusals;
 * the Mamba block's pass kernels (``csrc/mamba_passes.cu``) against the
   plain passes they replace, each kernel fed the plain passes' own inputs, in
   bf16 at mamba2-1.3b's and zamba2-2.7b's block widths, B in {1, 3} and L in
@@ -700,8 +710,9 @@ def test_mamba2_prefill_on_the_card_goes_through_the_kernel(card):
 def test_ssd_scan_under_grad_on_the_card_has_the_plain_gradient(card, dtype, tol):
     """Under grad a CUDA scan runs the kernel once inside ``ops.SSDScan``:
     its output has the Function's ``grad_fn``, and the gradients of all five
-    inputs are autograd's through the plain ``ssd_chunked`` (max|d| <= tol
-    max|ref|); under ``no_grad`` the kernel runs bare."""
+    inputs, the backward kernel's (one launch), are autograd's through the
+    plain ``ssd_chunked`` (max|d| <= tol max|ref|); under ``no_grad`` the
+    kernel runs bare."""
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
@@ -716,9 +727,12 @@ def test_ssd_scan_under_grad_on_the_card_has_the_plain_gradient(card, dtype, tol
         y = fn(*ts, 256)
         return y, torch.autograd.grad((y.float() * w).sum(), ts)
 
-    before = ssd_scan_cuda.launches
+    from repro_torch.kernels.ssd_scan.kernel_bwd import ssd_scan_bwd_cuda
+
+    before, before_bwd = ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches
     y, got = grads(ssd_scan)
     assert ssd_scan_cuda.launches == before + 1
+    assert ssd_scan_bwd_cuda.launches == before_bwd + 1
     assert type(y.grad_fn).__name__ == "SSDScanBackward"
     _, want = grads(ssd_chunked)
     for g, r in zip(got, want):
@@ -726,6 +740,185 @@ def test_ssd_scan_under_grad_on_the_card_has_the_plain_gradient(card, dtype, tol
     with torch.no_grad():
         assert ssd_scan(x, la, B, C, dt, 256).grad_fn is None
     assert ssd_scan_cuda.launches == before + 2
+
+
+# (Bt, L, H, P, N, G, Q): tests/test_kernels.py's shapes, rows that are not whole
+# groups of 4 (Q 6, N 12), (p)'s training shape, zamba2-7b's heads and groups,
+# nemotron's eight groups and chunk of 128
+SSD_BWD_SHAPES = [
+    (2, 64, 4, 8, 16, 1, 16), (1, 128, 2, 64, 128, 1, 32), (2, 32, 8, 16, 8, 1, 32),
+    (1, 64, 1, 128, 64, 1, 64), (1, 64, 2, 16, 8, 1, 16), (2, 32, 8, 32, 16, 1, 4),
+    (1, 30, 2, 16, 12, 1, 6), (1, 384, 3, 128, 128, 1, 192),
+    (8, 2048, 64, 64, 128, 1, 256),  # (p): mamba2-1.3b's training shape
+    (2, 512, 112, 64, 64, 2, 256),  # zamba2-7b
+    (2, 512, 64, 64, 128, 8, 128),  # nemotron-3-nano-30b-a3b
+]
+SSD_BWD_F32 = 1e-4  # each gradient's max|d| over its max|ref|: f32, and log_a's and dt's
+SSD_BWD_ULPS = 4  # bf16 x, B and C gradients: bf16 ulps of max|ref|
+#: planted faults, each a changed copy of csrc/ssd_scan_bwd.cu: dS' not carried
+#: from a chunk into the one before it, and dlog_a without its reverse cumsum
+SSD_BWD_FAULTS = {
+    "state_gradient_not_carried": ("            dS = eT[c] * dS + loc;", "            (void)loc;"),
+    "no_reverse_cumsum": ("        dlog_a[(row0 + k) * H + h] = acc;",
+                          "        dlog_a[(row0 + k) * H + h] = dcum(k);"),
+}
+
+
+def _ssd_bwd_inputs(card, Bt, L, H, Pd, N, G, dtype, seed):
+    """x, log_a, B, C, dt as ``_ssd_inputs`` (B and C [Bt, L, G, N] when G > 1),
+    and an output gradient dy; x, B, C and dy in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    bc = (Bt, L, G, N) if G > 1 else (Bt, L, N)
+    draw = [rng.standard_normal((Bt, L, H, Pd), dtype=f),
+            -np.abs(rng.standard_normal((Bt, L, H), dtype=f)) * 0.3,
+            rng.standard_normal(bc, dtype=f), rng.standard_normal(bc, dtype=f),
+            np.logaddexp(rng.standard_normal((Bt, L, H), dtype=f), f(0)),
+            rng.standard_normal((Bt, L, H, Pd), dtype=f)]
+    ts = [torch.from_numpy(np.asarray(a, dtype=f)).to(card) for a in draw]
+    return [t.to(dtype) if k in (0, 2, 3, 5) else t for k, t in enumerate(ts)]
+
+
+def _ssd_bwd_gaps(got, want, dtype):
+    """Each gradient's gap: bf16 ulps of max|ref| for a bf16 one, else max|d|
+    over max|ref|."""
+    return [_ulps(g, w) if w.dtype == torch.bfloat16 else _rel(g, w)
+            for g, w in zip(got, want)]
+
+
+def _ssd_bwd_limits(dtype):
+    return [SSD_BWD_ULPS if dtype == torch.bfloat16 and k in (0, 2, 3) else SSD_BWD_F32
+            for k in range(5)]
+
+
+@pytest.mark.parametrize("Bt,L,H,Pd,N,G,Q", SSD_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel_matches_plain_grads(card, Bt, L, H, Pd, N, G, Q, dtype):
+    """``ssd_scan_bwd_cuda``'s five gradients against ``ops.plain_grads``
+    (autograd through the plain ``ssd_chunked``) on the same inputs and output
+    gradient: f32 within SSD_BWD_F32 of max|ref| each; in bf16 the x, B and C
+    gradients (stored in bf16) within SSD_BWD_ULPS bf16 ulps of max|ref|, log_a's
+    and dt's (f32) within SSD_BWD_F32.  One launch counted a call, each gradient
+    in its input's dtype and shape."""
+    from repro_torch.kernels.ssd_scan.kernel_bwd import ssd_scan_bwd_cuda
+    from repro_torch.kernels.ssd_scan.ops import plain_grads
+
+    *inputs, dy = _ssd_bwd_inputs(card, Bt, L, H, Pd, N, G, dtype, L + N + G)
+    before = ssd_scan_bwd_cuda.launches
+    got = ssd_scan_bwd_cuda(*inputs, dy, Q)
+    assert ssd_scan_bwd_cuda.launches == before + 1
+    want = plain_grads(inputs, (True,) * 5, Q, dy)
+    torch.cuda.synchronize()
+    for g, w, a in zip(got, want, inputs):
+        assert g.dtype == w.dtype == a.dtype and g.shape == w.shape == a.shape
+    gaps = _ssd_bwd_gaps(got, want, dtype)
+    assert all(g <= t for g, t in zip(gaps, _ssd_bwd_limits(dtype))), gaps
+
+
+@pytest.mark.parametrize("fault", sorted(SSD_BWD_FAULTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_limits_read_planted_faults(card, monkeypatch, tmp_path, fault, dtype):
+    """Each planted fault (``SSD_BWD_FAULTS``, a build of a changed copy of the
+    source) reads outside the limits that the sound kernel meets on the same
+    inputs, at a shape of eight chunks: dS' not carried spoils dx, dB, dlog_a
+    and ddt; no reverse cumsum spoils dlog_a."""
+    from pathlib import Path
+
+    from repro_torch.kernels.nvcc import CSRC, CudaLibrary
+    from repro_torch.kernels.ssd_scan import kernel_bwd
+    from repro_torch.kernels.ssd_scan.ops import plain_grads
+
+    *inputs, dy = _ssd_bwd_inputs(card, 2, 1024, 4, 64, 128, 1, dtype, 17)
+    want = plain_grads(inputs, (True,) * 5, 128, dy)
+    limits = _ssd_bwd_limits(dtype)
+    sound = _ssd_bwd_gaps(kernel_bwd.ssd_scan_bwd_cuda(*inputs, dy, 128), want, dtype)
+    assert all(g <= t for g, t in zip(sound, limits)), sound
+    src = (CSRC / "ssd_scan_bwd.cu").read_text()
+    good, bad = SSD_BWD_FAULTS[fault]
+    assert src.count(good) == 1
+    path = Path(tmp_path) / f"ssd_scan_bwd_{fault}.cu"
+    path.write_text(src.replace(good, bad))
+    lib = CudaLibrary(str(path), kernel_bwd._bind).load()
+    monkeypatch.setattr(kernel_bwd, "load", lambda: lib)
+    gaps = _ssd_bwd_gaps(kernel_bwd.ssd_scan_bwd_cuda(*inputs, dy, 128), want, dtype)
+    spoiled = (0, 1, 2, 4) if fault == "state_gradient_not_carried" else (1,)
+    assert all(gaps[k] > 10 * limits[k] for k in spoiled), (fault, gaps)
+
+
+def test_ssd_backward_kernel_returns_only_the_gradients_asked_for(card):
+    """A subset of ``needs``: the others are None, the ones asked for equal
+    the full call's bit for bit (the kernels they need run alone), and the
+    Function passes ``needs_input_grad`` through."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.kernel_bwd import ssd_scan_bwd_cuda
+
+    *inputs, dy = _ssd_bwd_inputs(card, 2, 512, 4, 64, 64, 2, torch.bfloat16, 5)
+    full = ssd_scan_bwd_cuda(*inputs, dy, 256)
+    for needs in [(True, False, False, False, True), (False, True, False, False, False),
+                  (False, False, True, False, False), (False, False, False, True, False),
+                  (True, False, True, True, False)]:
+        got = ssd_scan_bwd_cuda(*inputs, dy, 256, needs)
+        for g, f, n in zip(got, full, needs):
+            assert (g is None) != n and (g is None or torch.equal(g, f)), needs
+    ts = [t.clone().requires_grad_(k in (2, 4)) for k, t in enumerate(inputs)]
+    y = ops.ssd_scan(*ts, chunk=256)
+    gB, gdt = torch.autograd.grad(y, [ts[2], ts[4]], dy)
+    assert torch.equal(gB, full[2]) and torch.equal(gdt, full[4])
+
+
+def test_ssd_backward_counts_one_launch_a_backward(card, monkeypatch):
+    """Under grad on the card: one ``ssd_scan_bwd_cuda`` launch and one
+    ``SSDScan.backward_calls`` a backward, ``ssd_scan_cuda.launches`` unmoved
+    by it, and the plain ``plain_grads`` never called."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_cuda
+    from repro_torch.kernels.ssd_scan.kernel_bwd import ssd_scan_bwd_cuda
+
+    *inputs, dy = _ssd_bwd_inputs(card, 2, 512, 4, 64, 128, 1, torch.bfloat16, 6)
+    ts = [t.clone().requires_grad_(True) for t in inputs]
+    y = ops.ssd_scan(*ts, chunk=256)
+    fwd, bwd, calls = ssd_scan_cuda.launches, ssd_scan_bwd_cuda.launches, ops.SSDScan.backward_calls
+    monkeypatch.setattr(ops, "plain_grads", lambda *a: pytest.fail("the plain backward ran"))
+    torch.autograd.grad(y, ts, dy)
+    assert ssd_scan_bwd_cuda.launches == bwd + 1 and ops.SSDScan.backward_calls == calls + 1
+    assert ssd_scan_cuda.launches == fwd
+
+
+def test_ssd_backward_kernel_is_deterministic(card):
+    """Two calls on the same inputs give equal bits: every row and partial
+    sum is added in a fixed order."""
+    from repro_torch.kernels.ssd_scan.kernel_bwd import ssd_scan_bwd_cuda
+
+    *inputs, dy = _ssd_bwd_inputs(card, 2, 512, 8, 64, 128, 2, torch.bfloat16, 7)
+    first = ssd_scan_bwd_cuda(*inputs, dy, 128)
+    second = ssd_scan_bwd_cuda(*inputs, dy, 128)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_ssd_backward_wrapper_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.ssd_scan.kernel_bwd import ssd_scan_bwd_cuda
+
+    *inputs, dy = _ssd_bwd_inputs(card, 1, 32, 2, 16, 8, 1, torch.float32, 1)
+    x, la, B, C, dt = inputs
+    before = ssd_scan_bwd_cuda.launches
+    with pytest.raises(ValueError, match="one dtype"):
+        ssd_scan_bwd_cuda(x, la, B.bfloat16(), C, dt, dy, 16)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_scan_bwd_cuda(x, la, B, C, dt, dy, 12)
+    with pytest.raises(ValueError, match="do not match"):
+        ssd_scan_bwd_cuda(x, la, B, C, dt, dy[:, :16], 16)
+    with pytest.raises(ValueError, match="head dims"):
+        ssd_scan_bwd_cuda(torch.zeros((1, 32, 2, 48), device=card), la, B, C, dt,
+                          torch.zeros((1, 32, 2, 48), device=card), 16)
+    big = torch.zeros((1, 8192, 1, 8), device=card)
+    f, bc = torch.zeros((1, 8192, 1), device=card), torch.zeros((1, 8192, 8), device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_scan_bwd_cuda(big, f, bc, bc, f, big, 1)  # the walk over 8192 chunks of one
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan_bwd_cuda(x.transpose(2, 3).contiguous().transpose(2, 3), la, B, C, dt, dy, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_bwd_cuda(x.cpu(), la, B, C, dt, dy, 16)
+    assert ssd_scan_bwd_cuda.launches == before
 
 
 def test_mamba2_train_step_on_the_card_matches_the_cpu(card):
