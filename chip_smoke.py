@@ -160,7 +160,11 @@ Phases, each on lines of its own; any failure exits non-zero:
    at nemotron-3-nano-30b-a3b's site (``flash_gqa_row``: B=8, L=4096, 32
    query heads over 2 KV heads of 128, causal, scale Dh^-1/2), one launch,
    held to the plain route row by row as above and timed beside its bound
-   and the plain route;
+   and the plain route; then at deepseek-v3's latent attention site
+   (``flash_mla_row``: B=2, L=16,384, 128 heads, q and k of 192, v of 128 a
+   view of W_kvb's output, causal), one launch, held to the plain route row
+   by row on a slice of 8 heads and timed whole beside its bound and
+   ``scaled_dot_product_attention`` where a backend of it takes the heads;
    (iii.d) nemotron-3-nano-30b-a3b's dropless MoE layer (``moe_grouped_row``)
    at its published widths on the benchmark item's 32,768 tokens, bf16: the
    grouped route's expert outputs held to the plain route's within 1e-2 of
@@ -487,6 +491,10 @@ FLASH_FAULT_TIMES = 4
 FLASH_SITE = dict(B=8, L=4096, H=32, Dh=224)
 # and nemotron-3-nano-30b-a3b's (32 query heads over 2 KV heads of 128, scale Dh^-1/2)
 FLASH_GQA_SITE = dict(B=8, L=4096, H=32, Hkv=2, Dh=128)
+# and deepseek-v3's (128 heads, q and k of 128 + 64, v of 128, its 16k prompts; the
+# plain route on a slice of FLASH_MLA_SLICE heads)
+FLASH_MLA_SITE = dict(B=2, L=16384, H=128, Dqk=192, Dv=128)
+FLASH_MLA_SLICE = 8
 # (ix) training at the published widths and depths through launch.train.run:
 # bf16 weights, f32 AdamW moments, remat "full", random weights of seed 0, no
 # checkpoint (ckpt_every past the last step).  train_4k (B=256, L=4096) cut to
@@ -1994,6 +2002,62 @@ def flash_gqa_row(torch, report):
     if not rel <= FLASH_TOL or launched != 1:
         fail(f"the flash kernel at nemotron's site: {rel:.3e} of a row's max|ref| from the plain "
              f"route (limit {FLASH_TOL:.3e}); {launched} launches, not 1")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
+def flash_mla_row(torch, report):
+    """Phase (iii.c), latent attention: the flash kernel at deepseek-v3's
+    MLA site (``FLASH_MLA_SITE``: q and k of 192, v of 128 a view of a
+    [B, L, H, 256] tensor, bf16, causal, scale 192^-1/2 YaRN's mscale²)
+    through ``common.flash_attention`` with grad off (one launch), held to
+    the plain route row by row on ``FLASH_MLA_SLICE`` heads (the plain route
+    over all 128 heads takes a second), and timed with CUDA events beside
+    its bound and ``scaled_dot_product_attention`` (a yardstick the port
+    never calls; "not measured" where no backend of it takes the heads)."""
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.models.common import _flash_attention, flash_attention
+
+    B, L, H, Dqk, Dv = (FLASH_MLA_SITE[k] for k in ("B", "L", "H", "Dqk", "Dv"))
+    scale = Dqk ** -0.5 * (0.1 * np.log(40.0) + 1.0) ** 2
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k = (torch.randn((B, L, H, Dqk), generator=gen, device="cuda").bfloat16()
+            for _ in range(2))
+    v = torch.randn((B, L, H, 256), generator=gen, device="cuda").bfloat16()[..., 256 - Dv:]
+    before = kernel.flash_attn_cuda.launches
+    with torch.no_grad():
+        got = flash_attention(q, k, v, causal=True, scale=scale)
+    launched = kernel.flash_attn_cuda.launches - before
+    n = FLASH_MLA_SLICE
+    want = _flash_attention(q[:, :, :n], k[:, :, :n], v[:, :, :n], True, 512, 1024, scale)
+    rel = _row_rel(got[:, :, :n], want)
+    del got, want
+    ms = event_ms(torch, lambda: kernel.flash_attn_cuda(q, k, v, True, scale), reps=5, warm=1)
+    bound_ms = 2 * B * H * L * (L + 1) / 2 * (Dqk + Dv) / PEAK["bfloat16"] * 1e3
+    sdpa_ms = None
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            sdpa_ms = event_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale), reps=5, warm=1)
+    except RuntimeError as e:
+        say(f"[flash] scaled_dot_product_attention at deepseek-v3's site: not measured ({e})"[:300])
+    del qt, kt, vt
+    row = report["flash_attn_mla"] = dict(
+        B=B, L=L, H=H, Dqk=Dqk, Dv=Dv, dtype="bfloat16", launches=launched, row_rel=rel,
+        rel_heads=n, ms=ms, bound_ms=bound_ms, bound_by="operations", sdpa_ms=sdpa_ms,
+        roofline=bound_ms / ms)
+    say("[flash] deepseek-v3's MLA site B={B} L={L} H={H} Dqk={Dqk} Dv={Dv} bf16 causal: kernel "
+        "{ms:.4f} ms against a bound of {bound_ms:.4f} ms ({bound_by}; {roofline:.1%}), "
+        "scaled_dot_product_attention {sdpa_ms} ms; against the plain route on {rel_heads} "
+        "heads, max over rows of max|d|/max|ref| {row_rel:.3e}; {launches} launch through "
+        "flash_attention".format(**row))
+    if not rel <= FLASH_TOL or launched != 1:
+        fail(f"the flash kernel at deepseek-v3's site: {rel:.3e} of a row's max|ref| from the "
+             f"plain route (limit {FLASH_TOL:.3e}); {launched} launches, not 1")
     del q, k, v
     torch.cuda.empty_cache()
 
@@ -4095,6 +4159,7 @@ def main():
     phase_done("phase (iii.b)")
     flash_attn_row(torch, report)
     flash_gqa_row(torch, report)
+    flash_mla_row(torch, report)
     phase_done("phase (iii.c)")
     moe_grouped_row(torch, report)
     phase_done("phase (iii.d)")

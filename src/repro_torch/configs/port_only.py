@@ -2,7 +2,8 @@
 
 ``configs.registry`` is a verbatim copy of the JAX package's and holds its
 ten architectures.  A configuration of a family the JAX package lacks
-(zamba2 as released: ``models.zamba2``; Nemotron-H: ``models.nemotron_h``)
+(zamba2 as released: ``models.zamba2``; Nemotron-H: ``models.nemotron_h``;
+DeepSeek-V3: ``models.deepseek_v3``)
 is found here instead, so that the registry, and every test that holds the
 port to it, stays as it is.
 """
@@ -17,6 +18,7 @@ from repro_torch.models.config import ModelConfig
 _MODULES: Dict[str, str] = {
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
     "nemotron-3-nano-30b-a3b": "repro_torch.configs.nemotron_3_nano_30b_a3b",
+    "deepseek-v3": "repro_torch.configs.deepseek_v3",
 }
 
 PORT_ARCHS: Tuple[str, ...] = tuple(_MODULES)

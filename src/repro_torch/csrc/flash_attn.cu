@@ -54,12 +54,20 @@
 // of its own would share none of this one's wgmma, TMA or softmax code.
 //
 // Head dims 32, 64, 80, 128, 224 and 256 (each a multiple of 16, wgmma's
-// depth); head h reads KV head h / (H / Hkv); Lq may differ from Lk (causal:
-// query i sees keys 0..i, as the plain route's mask).
+// depth), with V as wide as Q and K; and latent attention's split heads
+// (DeepSeek-V3's MLA: Q K^T over DQK = 192, 128 no-position dims and 64 rope
+// dims, P V and O over DV = 128).  The kernel is templated on <DQK, DV>: Q and
+// K tiles, and Q K^T's k-steps, span DQK; V tiles, P V and O span DV, and the
+// output is [B, Lq, H, DV].  Padding V to DQK would do half as much P V again
+// on zeros.  A (d, d) instantiation has the constants, and so the code, it had
+// when the kernel took one head dim.  Head h reads KV head h / (H / Hkv); Lq
+// may differ from Lk (causal: query i sees keys 0..i, as the plain route's
+// mask).
 //
 // Build:  nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //              -Xcompiler -fPIC -o libflash_attn.so flash_attn.cu
-// C interface: flash_attn_fwd launches one kernel on the given stream and
+// C interface: flash_attn_fwd (Dh the head dim of Q and K, Dv that of V and
+// the output) launches one kernel on the given stream and
 // returns cudaGetLastError() as an int (0 == launched), or TMAP_ERROR plus
 // the CUresult where cuTensorMapEncodeTiled refused a tensor map.  The caller checks
 // shapes, the dtype, head dims, strides and alignment.
@@ -85,15 +93,18 @@ constexpr float NEG = -1e30f;  // a masked score, as the plain route's
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int TMAP_ERROR = 1000;
 
-template <int DH> struct Tile {
-    static constexpr int NCH = (DH + CW - 1) / CW;  // swizzled chunks of the head dim
-    static constexpr int KSTEPS = DH / 16;          // wgmma k-steps of Q K^T
+template <int DQK, int DV> struct Tile {
+    static constexpr int NCH = (DQK + CW - 1) / CW;   // swizzled chunks of Q's and K's head dim
+    static constexpr int NCH_V = (DV + CW - 1) / CW;  // ... of V's and O's
+    static constexpr int KSTEPS = DQK / 16;           // wgmma k-steps of Q K^T
     static constexpr int Q_BYTES = NCH * BM * 128;
-    static constexpr int KV_BYTES = NCH * BN * 128;  // K (or V), one stage
+    static constexpr int K_BYTES = NCH * BN * 128;    // K, one stage
+    static constexpr int V_BYTES = NCH_V * BN * 128;  // V, one stage
+    static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
     static constexpr int BAR_BYTES = 8 * (1 + 2 * STAGES);
     // 1024 bytes of slack to align the swizzled tiles
-    static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES + BAR_BYTES;
-    static_assert(DH % 16 == 0, "wgmma's depth is 16");
+    static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES + BAR_BYTES;
+    static_assert(DQK % 16 == 0 && DV % 16 == 0, "wgmma's depth is 16");
     static_assert(SMEM <= 232448, "a block has 227 KB of shared memory");
 };
 
@@ -244,20 +255,20 @@ __device__ __forceinline__ int kv_tiles(int q0, int rows, int Lq, int Lk, int bn
 
 // One consumer warpgroup: 64 query rows from `row0`, over the block's n_kv
 // tiles of keys (the ones past its own rows' last key only released).
-template <int DH>
+template <int DQK, int DV>
 __device__ __forceinline__ void consume(uint32_t q_s, uint32_t kv_s, uint32_t bars,
                                         __nv_bfloat16* __restrict__ out, int wg, int row0, int b,
                                         int h, int H, int Lq, int Lk, int n_kv, float scale_log2,
                                         int causal) {
-    using T = Tile<DH>;
+    using T = Tile<DQK, DV>;
     const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
     const int ra = row0 + warp * 16 + lane / 4, rb = ra + 8;  // this thread's two rows
     const int mine = kv_tiles(row0, 64, Lq, Lk, BN, causal);
     const uint32_t q_wg = q_s + wg * 64 * 128;
 
-    float o[T::NCH][32];
+    float o[T::NCH_V][32];
 #pragma unroll
-    for (int c = 0; c < T::NCH; ++c)
+    for (int c = 0; c < T::NCH_V; ++c)
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
     float ma = NEG, mb = NEG, la = 0.f, lb = 0.f;
@@ -268,7 +279,7 @@ __device__ __forceinline__ void consume(uint32_t q_s, uint32_t kv_s, uint32_t ba
         const uint32_t full = bars + 8 * (1 + s), empty = bars + 8 * (1 + STAGES + s);
         mbar_wait(full, (j / STAGES) & 1);
         if (j < mine) {
-            const uint32_t ks = kv_s + s * 2 * T::KV_BYTES, vs = ks + T::KV_BYTES;
+            const uint32_t ks = kv_s + s * T::STAGE_BYTES, vs = ks + T::K_BYTES;
             float sc[32];
 #pragma unroll
             for (int i = 0; i < 32; ++i) sc[i] = 0.f;
@@ -326,7 +337,7 @@ __device__ __forceinline__ void consume(uint32_t q_s, uint32_t kv_s, uint32_t ba
                 for (int r = 0; r < 4; ++r)
                     pa[kk][r] = bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 #pragma unroll
-            for (int c = 0; c < T::NCH; ++c) {
+            for (int c = 0; c < T::NCH_V; ++c) {
 #pragma unroll
                 for (int i = 0; i < 32; ++i) o[c][i] *= (i % 4) < 2 ? ca : cb;
                 fence_regs(o[c]);
@@ -335,13 +346,13 @@ __device__ __forceinline__ void consume(uint32_t q_s, uint32_t kv_s, uint32_t ba
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-                for (int c = 0; c < T::NCH; ++c)
+                for (int c = 0; c < T::NCH_V; ++c)
                     wgmma_rs(o[c], pa[kk],
                              sw128(vs + c * BN * 128 + kk * 16 * 128, BN * 128, 1024));
             wgmma_commit();
             wgmma_wait_all();
 #pragma unroll
-            for (int c = 0; c < T::NCH; ++c) fence_regs(o[c]);
+            for (int c = 0; c < T::NCH_V; ++c) fence_regs(o[c]);
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(empty);
@@ -350,15 +361,15 @@ __device__ __forceinline__ void consume(uint32_t q_s, uint32_t kv_s, uint32_t ba
     la = quad_sum(la);
     lb = quad_sum(lb);
     const float ia = 1.f / fmaxf(la, 1e-30f), ib = 1.f / fmaxf(lb, 1e-30f);
-    const size_t row_stride = static_cast<size_t>(H) * DH;
-    __nv_bfloat16* oa = out + (static_cast<size_t>(b) * Lq + ra) * row_stride + h * DH;
+    const size_t row_stride = static_cast<size_t>(H) * DV;
+    __nv_bfloat16* oa = out + (static_cast<size_t>(b) * Lq + ra) * row_stride + h * DV;
     __nv_bfloat16* ob = oa + 8 * row_stride;
 #pragma unroll
-    for (int c = 0; c < T::NCH; ++c)
+    for (int c = 0; c < T::NCH_V; ++c)
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
             const int col = c * CW + jj * 8 + 2 * (lane % 4);
-            if (col < DH) {
+            if (col < DV) {
                 if (ra < Lq)
                     *reinterpret_cast<uint32_t*>(oa + col) =
                         bf16x2(o[c][4 * jj] * ia, o[c][4 * jj + 1] * ia);
@@ -369,17 +380,18 @@ __device__ __forceinline__ void consume(uint32_t q_s, uint32_t kv_s, uint32_t ba
         }
 }
 
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int H,
                    int Hkv, int Lq, int Lk, int BH, int tiles, int group, float scale_log2,
                    int causal) {
-    using T = Tile<DH>;
+    using T = Tile<DQK, DV>;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;  // Q: NCH chunks of BM rows
-    const uint32_t kv_s = q_s + T::Q_BYTES;  // stage s: K then V, NCH chunks of BN rows each
-    const uint32_t bars = kv_s + STAGES * 2 * T::KV_BYTES;  // Q, full[STAGES], empty[STAGES]
+    // stage s: K (NCH chunks of BN rows), then V (NCH_V chunks of BN rows)
+    const uint32_t kv_s = q_s + T::Q_BYTES;
+    const uint32_t bars = kv_s + STAGES * T::STAGE_BYTES;  // Q, full[STAGES], empty[STAGES]
 
     const Place at = place(BH, tiles, group);
     const int b = at.bh / H, h = at.bh % H, hk = h / (H / Hkv);
@@ -407,17 +419,17 @@ __global__ void __launch_bounds__(THREADS, 1)
                 const int s = j % STAGES;
                 const uint32_t full = bars + 8 * (1 + s);
                 if (j >= STAGES) mbar_wait(bars + 8 * (1 + STAGES + s), (j / STAGES - 1) & 1);
-                mbar_expect_tx(full, 2 * T::KV_BYTES);
-                const uint32_t ks = kv_s + s * 2 * T::KV_BYTES, vs = ks + T::KV_BYTES;
-                for (int c = 0; c < T::NCH; ++c) {
-                    tma_load(ks + c * BN * 128, &tk, c * CW, hk, j * BN, b, full);
-                    tma_load(vs + c * BN * 128, &tv, c * CW, hk, j * BN, b, full);
+                mbar_expect_tx(full, T::STAGE_BYTES);
+                const uint32_t ks = kv_s + s * T::STAGE_BYTES, vs = ks + T::K_BYTES;
+                for (int c = 0; c < T::NCH || c < T::NCH_V; ++c) {
+                    if (c < T::NCH) tma_load(ks + c * BN * 128, &tk, c * CW, hk, j * BN, b, full);
+                    if (c < T::NCH_V) tma_load(vs + c * BN * 128, &tv, c * CW, hk, j * BN, b, full);
                 }
             }
         }
     } else {
         asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-        consume<DH>(q_s, kv_s, bars, out, wg, q0 + wg * 64, b, h, H, Lq, Lk, n_kv, scale_log2,
+        consume<DQK, DV>(q_s, kv_s, bars, out, wg, q0 + wg * 64, b, h, H, Lq, Lk, n_kv, scale_log2,
                     causal);
     }
 }
@@ -478,18 +490,18 @@ struct Args {
     cudaStream_t stream;
 };
 
-template <int DH> int launch(const Args& a) {
+template <int DQK, int DV> int launch(const Args& a) {
     CUtensorMap tq, tk, tv;
-    int rc = tensor_map(&tq, a.q, a.B, a.Lq, a.H, DH, a.sqb, a.sql, a.sqh, BM);
-    if (!rc) rc = tensor_map(&tk, a.k, a.B, a.Lk, a.Hkv, DH, a.skb, a.skl, a.skh, BN);
-    if (!rc) rc = tensor_map(&tv, a.v, a.B, a.Lk, a.Hkv, DH, a.svb, a.svl, a.svh, BN);
+    int rc = tensor_map(&tq, a.q, a.B, a.Lq, a.H, DQK, a.sqb, a.sql, a.sqh, BM);
+    if (!rc) rc = tensor_map(&tk, a.k, a.B, a.Lk, a.Hkv, DQK, a.skb, a.skl, a.skh, BN);
+    if (!rc) rc = tensor_map(&tv, a.v, a.B, a.Lk, a.Hkv, DV, a.svb, a.svl, a.svh, BN);
     if (rc) return rc;
-    const int smem = Tile<DH>::SMEM;
+    const int smem = Tile<DQK, DV>::SMEM;
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_fwd_bf16<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int BH = a.B * a.H, tiles = (a.Lq + BM - 1) / BM;
-    flash_fwd_bf16<DH><<<BH * tiles, THREADS, smem, a.stream>>>(
+    flash_fwd_bf16<DQK, DV><<<BH * tiles, THREADS, smem, a.stream>>>(
         tq, tk, tv, static_cast<__nv_bfloat16*>(a.out), a.H, a.Hkv, a.Lq, a.Lk, BH, tiles,
         head_group(BH, tiles), a.scale * LOG2E, a.causal);
     return static_cast<int>(cudaGetLastError());
@@ -498,19 +510,21 @@ template <int DH> int launch(const Args& a) {
 }  // namespace
 
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* out, int B,
-                              int Lq, int Lk, int H, int Hkv, int Dh, long long sqb,
+                              int Lq, int Lk, int H, int Hkv, int Dh, int Dv, long long sqb,
                               long long sql, long long sqh, long long skb, long long skl,
                               long long skh, long long svb, long long svl, long long svh,
                               float scale, int causal, void* stream) {
     const Args a{q, k, v, out, B, Lq, Lk, H, Hkv, sqb, sql, sqh, skb, skl, skh, svb, svl, svh,
                  scale, causal, static_cast<cudaStream_t>(stream)};
+    if (Dh == 192 && Dv == 128) return launch<192, 128>(a);  // latent attention's heads
+    if (Dv != Dh) return static_cast<int>(cudaErrorInvalidValue);
     switch (Dh) {
-        case 32: return launch<32>(a);
-        case 64: return launch<64>(a);
-        case 80: return launch<80>(a);
-        case 128: return launch<128>(a);
-        case 224: return launch<224>(a);
-        case 256: return launch<256>(a);
+        case 32: return launch<32, 32>(a);
+        case 64: return launch<64, 64>(a);
+        case 80: return launch<80, 80>(a);
+        case 128: return launch<128, 128>(a);
+        case 224: return launch<224, 224>(a);
+        case 256: return launch<256, 256>(a);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }

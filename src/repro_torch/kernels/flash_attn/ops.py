@@ -27,8 +27,8 @@ from repro_torch.models import common
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                     q_chunk: int, k_chunk: int, scale: Optional[float]) -> torch.Tensor:
-    """Attention of ``q [B, Lq, H, Dh]`` over ``k, v [B, Lk, Hkv, Dh]``: the
-    plain version or the kernel, by the rule above."""
+    """Attention of ``q [B, Lq, H, Dh]`` over ``k [B, Lk, Hkv, Dh]`` and ``v
+    [B, Lk, Hkv, Dv]``: the plain version or the kernel, by the rule above."""
     if q.device.type in PLAIN_DEVICES or recording(q, k, v) or q.dtype == torch.float32:
         return common._flash_attention(q, k, v, causal, q_chunk, k_chunk, scale)
     return flash_attn_cuda(q, k, v, causal, scale)

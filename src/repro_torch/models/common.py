@@ -18,6 +18,7 @@ exports them.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -110,6 +111,37 @@ def rope_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tenso
     return 1.0 / (theta ** exps)
 
 
+def yarn_rope_freqs(dim: int, theta: float, factor: float, original_max: int, beta_fast: float,
+                    beta_slow: float, device: torch.device) -> torch.Tensor:
+    """YaRN's inverse frequencies [dim/2] (arXiv:2309.00071, as DeepSeek-V3's
+    ``DeepseekV3YarnRotaryEmbedding`` blends them): :func:`rope_freqs`
+    (``freq_extra``) on the dims that turn more than ``beta_fast`` times
+    over ``original_max`` positions, the same over ``factor``
+    (``freq_inter``) on those that turn fewer than ``beta_slow`` times, and
+    a linear ramp between (``yarn_find_correction_range`` and
+    ``yarn_linear_ramp_mask``)."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    extra, inter = 1.0 / (theta ** exps), 1.0 / (factor * theta ** exps)
+
+    def turns(rotations: float) -> float:  # yarn_find_correction_dim
+        return dim * math.log(original_max / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+    low = max(math.floor(turns(beta_fast)), 0)
+    high = min(math.ceil(turns(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    extra_share = 1.0 - ramp
+    return inter * (1 - extra_share) + extra * extra_share
+
+
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """YaRN's attention scale ``0.1 mscale ln(factor) + 1`` (1 where
+    ``factor`` <= 1), the release's ``yarn_get_mscale``."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: [..., L, H, Dh]; positions: [..., L] (int)."""
     dh = x.shape[-1]
@@ -164,8 +196,10 @@ def flash_attention(
 ) -> torch.Tensor:
     """Online-softmax attention with GQA, bounded memory, on two routes.
 
-    q: [B, Lq, H, Dh]; k/v: [B, Lk, Hkv, Dh].  ``scale`` multiplies the
-    scores: None is 1/sqrt(Dh); zamba2 passes (Dh/2)^-1/2.  A bf16 CUDA
+    q, k: [B, Lq or Lk, H or Hkv, Dh]; v: [B, Lk, Hkv, Dv], Dv = Dh but
+    for latent attention's split heads (DeepSeek-V3: Dh 192, Dv 128); the
+    output is [B, Lq, H, Dv].  ``scale`` multiplies the scores: None is
+    1/sqrt(Dh); zamba2 passes (Dh/2)^-1/2.  A bf16 CUDA
     tensor with grad off goes to the Hopper kernel (``kernels/flash_attn``:
     one launch, the tiles above the causal diagonal skipped); a CPU or
     ``meta`` tensor, a float32 call, or a call that autograd records, to the
@@ -188,6 +222,7 @@ def _flash_attention(q, k, v, causal, q_chunk, k_chunk, scale):
     above the causal diagonal too, as in JAX."""
     B, Lq0, H, Dh = q.shape
     _, Lk0, Hkv, _ = k.shape
+    Dv = v.shape[-1]
     G = H // Hkv
     q_chunk = min(q_chunk, Lq0)
     k_chunk = min(k_chunk, Lk0)
@@ -201,13 +236,13 @@ def _flash_attention(q, k, v, causal, q_chunk, k_chunk, scale):
     Lq, Lk = Lq0 + pad_q, Lk0 + pad_k
     scale = float(1.0 / np.sqrt(Dh)) if scale is None else float(scale)
     pos = torch.arange(max(Lq, Lk), device=q.device)
-    out = torch.empty((B, Lq, H, Dh), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Lq, H, Dv), dtype=q.dtype, device=q.device)
     for q0 in range(0, Lq, q_chunk):
         q_blk = q[:, q0:q0 + q_chunk].reshape(B, q_chunk, Hkv, G, Dh)
         qpos = pos[q0:q0 + q_chunk]
         m = torch.full((B, Hkv, G, q_chunk), -1e30, dtype=torch.float32, device=q.device)
         l = torch.zeros((B, Hkv, G, q_chunk), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, Hkv, G, q_chunk, Dh), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, Hkv, G, q_chunk, Dv), dtype=torch.float32, device=q.device)
         for k0 in range(0, Lk, k_chunk):
             k_blk, v_blk = k[:, k0:k0 + k_chunk], v[:, k0:k0 + k_chunk]
             kp = pos[k0:k0 + k_chunk]
@@ -223,8 +258,8 @@ def _flash_attention(q, k, v, causal, q_chunk, k_chunk, scale):
             pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v_blk.dtype), v_blk)
             acc = acc * corr[..., None] + pv
             m = m_new
-        o = acc / torch.clamp(l, min=1e-30)[..., None]  # [B,Hkv,G,qc,Dh]
-        out[:, q0:q0 + q_chunk] = o.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, Dh).to(q.dtype)
+        o = acc / torch.clamp(l, min=1e-30)[..., None]  # [B,Hkv,G,qc,Dv]
+        out[:, q0:q0 + q_chunk] = o.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, Dv).to(q.dtype)
     return out[:, :Lq0]
 
 

@@ -3,9 +3,9 @@
 Port of the JAX package's ``models/model_api.py``.  ``build_model(cfg,
 device)`` returns a :class:`Model` bundle for every family of the
 registry (dense, moe, ssm, hybrid, encdec, vlm) and for the port-only
-zamba2 and nemotron_h (``configs.port_only``; no decode, no sharding specs;
-nemotron_h no loss), with the entry points the trainer and the serving loop
-share:
+zamba2, nemotron_h and deepseek_v3 (``configs.port_only``; no decode, no
+sharding specs; nemotron_h and deepseek_v3 no loss), with the entry points
+the trainer and the serving loop share:
 
   init(generator) -> params                  (weights drawn on the generator's device)
   loss(params, batch) -> scalar              (training objective, f32)
@@ -39,8 +39,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import AX_DATA
 from repro_torch.launch.mesh import PartitionSpec as P
-from repro_torch.models import (hybrid, mamba2, moe, nemotron_h, transformer, vlm, whisper,
-                                zamba2)
+from repro_torch.models import (deepseek_v3, hybrid, mamba2, moe, nemotron_h, transformer, vlm,
+                                whisper, zamba2)
 from repro_torch.models.common import dtype_of
 from repro_torch.models.config import ModelConfig
 from repro_torch.spans import span
@@ -102,6 +102,8 @@ class Model:
                 return zamba2.zamba2_prefill(cfg, params, tokens)
             if fam == "nemotron_h":
                 return nemotron_h.nemotron_h_prefill(cfg, params, tokens)
+            if fam == "deepseek_v3":
+                return deepseek_v3.deepseek_v3_prefill(cfg, params, tokens)
             if fam == "encdec":
                 return whisper.encdec_prefill(cfg, params, batch["frames"], tokens)
             raise ValueError(fam)
@@ -181,6 +183,9 @@ FAMILIES = {
     "nemotron_h": (nemotron_h.init_nemotron_h_model, nemotron_h.nemotron_h_loss,
                    nemotron_h.nemotron_h_init_cache, nemotron_h.nemotron_h_decode_step,
                    nemotron_h.nemotron_h_param_specs, nemotron_h.nemotron_h_cache_specs),
+    "deepseek_v3": (deepseek_v3.init_deepseek_v3_model, deepseek_v3.deepseek_v3_loss,
+                    deepseek_v3.deepseek_v3_init_cache, deepseek_v3.deepseek_v3_decode_step,
+                    deepseek_v3.deepseek_v3_param_specs, deepseek_v3.deepseek_v3_cache_specs),
 }
 
 

@@ -74,14 +74,20 @@ NO_SPECS = ("nemotron_h has no sharding specs: the port runs it on one card, and
 class NemotronHConfig(ModelConfig):
     """``ModelConfig`` with Nemotron-H's own keys: the layer pattern, the
     Mamba heads and B/C groups, the shared expert's width and the router's
-    scale.  Of ``ModelConfig``'s keys, ``d_ff`` is 0 (the release has no
-    dense MLP layer) and ``activation`` and ``ssm_expand`` are not read: the
-    experts are relu², and :attr:`d_inner` comes from the Mamba heads."""
+    scale, and the router's keys that ``moe_dropless`` reads: ``n_group``
+    and ``topk_group`` (1 in the release: no group limit) and the first
+    expert held (0: the card holds all of them).  Of ``ModelConfig``'s keys,
+    ``d_ff`` is 0 (the release has no dense MLP layer) and ``activation``
+    and ``ssm_expand`` are not read: the experts are relu², and
+    :attr:`d_inner` comes from the Mamba heads."""
     layer_pattern: str = ""
     mamba_num_heads: int = 0
     ssm_ngroups: int = 1
     moe_shared_d_ff: int = 0
     routed_scaling_factor: float = 1.0
+    n_group: int = 1
+    topk_group: int = 1
+    expert_offset: int = 0
 
     @property
     def d_inner(self) -> int:

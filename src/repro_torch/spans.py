@@ -31,13 +31,25 @@ The spans and where they sit:
 ``moe.router``             ``models.moe_dropless.moe_apply``: the router's
                            scores, top-k and weights
 ``moe.experts``            the routed experts' up and down products and
-                           relu² (the grouped GEMMs on the grouped route)
-``moe.shared_expert``      the shared expert's two products and relu²
+                           their activation (the grouped GEMMs on the grouped
+                           route)
+``moe.shared_expert``      the shared expert's products and activation
+``mla.attention``          ``models.deepseek_v3.mla``: a whole MLA block
+                           (norm, projections, rope, attention, W_o, residual)
+``mla.q_proj``,            its low-rank q and kv projections, their norms,
+``mla.kv_proj``            the rope and the k / v assembly
+``deepseek.dense_mlp``     ``models.deepseek_v3.dense_mlp``: a whole dense
+                           SwiGLU block
+``deepseek.moe``           ``models.deepseek_v3.moe_layer_apply``: a whole MoE
+                           layer on the held experts
 =========================  ==================================================
 
 Counters beside them, kept on the host: ``models.zamba2.shared_block.calls``,
-``models.moe_dropless.calls`` (MoE layer calls) and
-``models.moe_dropless.routed_rows`` (routes dispatched to the experts).
+``models.deepseek_v3.mla.calls`` (MLA blocks), ``models.moe_dropless.calls``
+(MoE layer calls) and ``models.moe_dropless.routed_rows`` (routes
+dispatched to the experts); on the device, with no sync,
+``models.moe_dropless.held_rows`` (routes to held experts, where a layer
+holds a share of them; read by ``held_count``).
 """
 
 from __future__ import annotations

@@ -110,7 +110,19 @@ runs on a machine that has only torch:
   every token to the same six experts; the SSD kernel and the pass kernels
   at its Mamba block (eight B/C groups, chunk 128); a tiny nemotron_h
   prefilling on the card through every kernel against the float32
-  reference on the card's own routes.
+  reference on the card's own routes;
+* deepseek-v3's latent attention: the flash kernel at (192, 128) (v a view
+  of W_kvb's output) at 16k on a slice of heads and at ragged lengths,
+  against the plain route within the tolerance of the other head dims; a
+  planted fault (V's map stepping heads by DQK) read far outside it; every
+  (d, d) head dim the same bits as the kernel built for one head dim gave;
+  its MoE layer on the benchmark's share (8 of 256 experts, top-8 over 8
+  groups, SwiGLU) on the grouped route against the plain route, the routes
+  to other experts zero, the held routes counted on the device and read by
+  the benchmark driver's counters under the device run.py gives, no host
+  sync; nemotron's grouped route the same bits as the former code's; a
+  small deepseek_v3 prefilling through the kernel and the grouped route
+  against the float32 reference.
 """
 
 import numpy as np
@@ -2110,6 +2122,255 @@ def test_nemotron_prefill_on_the_card_matches_the_reference(card):
             "mamba_num_heads", "ssm_headdim", "ssm_state", "ssm_ngroups", "ssm_conv_width",
             "ssm_chunk", "n_experts", "experts_per_token", "moe_d_ff", "moe_shared_d_ff",
             "routed_scaling_factor", "norm_eps")
+    w = dict({k: getattr(cfg, k) for k in keys}, family=cfg.family)
+    want = ref.prefill_logits(w, params, toks, routes=routes)
+    assert _rel(got, want) < 5e-2
+
+
+# ------------------------------- deepseek-v3: latent attention's split heads ---
+
+#: the flash kernel's outputs (sha256 of the bf16 bits, first 16 hex digits) at
+#: every (d, d) head dim, causal (1) or not (0), on CPU-drawn inputs (seed Dh;
+#: q [2, 300, 4, Dh], k and v [2, 300, 2, Dh]), read from the kernel built with
+#: one head dim, before it took v narrower than q and k (H100 80GB HBM3)
+FLASH_BITS = {
+    "32-1": "1c9d9aab7f8d5e87", "32-0": "f0f8b6a0e5cab61b", "64-1": "31549bc059059667",
+    "64-0": "490ff682e35916bc", "80-1": "1e8803a0741f992b", "80-0": "cc3644c36cf23291",
+    "128-1": "f6397efb1dd4380c", "128-0": "4d914aa181a377c3", "224-1": "38c8b9e886f75ae3",
+    "224-0": "1edc31e95bc75315", "256-1": "bf41127571a64e02", "256-0": "41c982342e8fabe4",
+}
+
+
+def _mla_inputs(card, B, L, H, seed=0):
+    """q and k of 192 and v of 128, v a view of a [B, L, H, 256] tensor (the
+    model's ``[k_nope | v]``, W_kvb's output), as ``deepseek_v3.kv_proj``
+    hands it to the kernel."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((B, L, H, 192), generator=g, device=card).bfloat16()
+    k = torch.randn((B, L, H, 192), generator=g, device=card).bfloat16()
+    kv = torch.randn((B, L, H, 256), generator=g, device=card).bfloat16()
+    return q, k, kv[..., 128:]
+
+
+@pytest.mark.parametrize("B,L,H,causal", [(1, 16384, 8, True), (2, 1100, 4, False),
+                                          (2, 777, 4, True)])
+def test_flash_kernel_at_latent_attentions_split_heads(card, B, L, H, causal):
+    """DeepSeek-V3's MLA heads (q, k 192; v 128) at its 16k prompts on a slice
+    of its 128 heads, and at ragged lengths: one launch, the output [B, L, H,
+    128], each row within the tolerance of the other head dims of the plain
+    route on the same inputs, at the model's softmax scale."""
+    from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
+    from repro_torch.models.common import _flash_attention
+
+    scale = 192 ** -0.5 * (0.1 * np.log(40) + 1) ** 2
+    q, k, v = _mla_inputs(card, B, L, H)
+    assert not v.is_contiguous()
+    before = flash_attn_cuda.launches
+    got = flash_attn_cuda(q, k, v, causal, scale)
+    assert flash_attn_cuda.launches == before + 1 and tuple(got.shape) == (B, L, H, 128)
+    want = _flash_attention(q, k, v, causal, 512, 1024, scale)
+    assert _row_rel(got, want) <= FLASH_BF16_TOL
+
+
+def test_flash_limit_reads_v_at_dqks_stride(card, tmp_path):
+    """The benchmark's planted fault (``h100bench/deepseek_faults``: V's
+    tensor map stepping heads by DQK, not by V's own stride), built from a
+    changed copy of the source, reads far outside the tolerance the sound
+    kernel meets on the same inputs."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from h100bench import deepseek_faults
+    from repro_torch.kernels.flash_attn import kernel
+    from repro_torch.models.common import _flash_attention
+
+    faulty = _flash_fault(tmp_path, *deepseek_faults.FLASH_V_MAP)
+    q, k, v = _mla_inputs(card, 1, 2048, 8)
+    want = _flash_attention(q, k, v, True, 512, 1024, None)
+    assert _row_rel(kernel.flash_attn_cuda(q, k, v, True), want) <= FLASH_BF16_TOL
+    assert _row_rel(kernel.launch(faulty, q, k, v, True, None), want) > 10 * FLASH_BF16_TOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Dh", [32, 64, 80, 128, 224, 256])
+def test_flash_kernel_gives_every_head_dim_the_bits_it_gave_before(card, Dh, causal):
+    """Templating the kernel on (DQK, DV) left each (d, d) build's output as
+    it was, bit for bit (:data:`FLASH_BITS`)."""
+    import hashlib
+
+    from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
+
+    g = torch.Generator().manual_seed(Dh)
+    q = torch.randn((2, 300, 4, Dh), generator=g).bfloat16().to(card)
+    k, v = (torch.randn((2, 300, 2, Dh), generator=g).bfloat16().to(card) for _ in range(2))
+    out = flash_attn_cuda(q, k, v, causal, None).cpu().view(torch.int16).numpy().tobytes()
+    assert hashlib.sha256(out).hexdigest()[:16] == FLASH_BITS[f"{Dh}-{int(causal)}"]
+
+
+# ---------------------------------------- deepseek-v3: the expert-parallel MoE ---
+
+def _deepseek_moe_layer(card, T=32768, seed=0):
+    """One MoE layer of deepseek-v3 at its published widths on the card, the
+    benchmark's share (experts 0-7 of 256 held, top-8 over 8 groups, the best
+    4 kept, SwiGLU), and normed tokens x [T, D] in bf16."""
+    import dataclasses
+
+    from repro_torch.configs.port_only import get_port_config
+
+    cfg = dataclasses.replace(get_port_config("deepseek-v3"), n_experts_held=8)
+    g = torch.Generator(device=card).manual_seed(seed)
+    D, E, F, Fs, n = cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.moe_shared_d_ff, 8
+
+    def draw(shape, std, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=card) * std).to(dtype)
+
+    p = {"router": {"w": draw((D, E), 0.02, torch.float32)},
+         "e_bias": draw((E,), 0.01, torch.float32),
+         "w_gate_up": draw((n, D, 2 * F), 0.02), "w_down": draw((n, F, D), 0.002),
+         "shared_gate_up": {"w": draw((D, 2 * Fs), 0.02)},
+         "shared_down": {"w": draw((Fs, D), 0.002)}}
+    return cfg, p, draw((T, D), 1.0)
+
+
+def test_moe_grouped_route_on_deepseeks_share_matches_the_plain_route(card):
+    """32,768 tokens, 262,144 routes, some 8,192 to the held experts: the
+    grouped route's expert outputs against the plain route's on the same
+    routes, within 1e-2 of max|ref| as nemotron's; the routes to experts not
+    held zero on both; the layer the same bits on a second call; the held
+    routes counted on the device."""
+    from repro_torch.models import moe_dropless
+
+    cfg, p, x = _deepseek_moe_layer(card)
+    ids, w = moe_dropless.route(cfg, p, x)
+    held = ids < 8
+    got = moe_dropless.experts_grouped(p, x, ids, 0)
+    want = moe_dropless.experts_plain(p, x, ids, 0)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 1e-2
+    assert not got[~held].any() and not want[~held].any()
+    assert 4096 < int(held.sum()) < 16384
+    before = moe_dropless.held_count(x.device)
+    a = moe_dropless.moe_apply(cfg, p, x[None])
+    b = moe_dropless.moe_apply(cfg, p, x[None])
+    assert torch.equal(a, b)
+    assert moe_dropless.held_count(x.device) - before == 2 * int(held.sum())
+
+
+def test_the_deepseek_drivers_counters_read_the_held_routes_on_the_card(card):
+    """The benchmark driver's ``counters``, given the device as
+    ``h100bench/run.py`` builds it (``torch.device("cuda")``, no index), read
+    the routes a layer on a share counted on the card (a tensor on
+    ``cuda:0``): the count the driver's model FLOPs take for the held
+    experts."""
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    from h100bench.harness import load_module
+    from repro_torch.models import moe_dropless
+
+    drv = load_module(root / "h100bench" / "drivers" / "deepseek_prefill.py",
+                      "test_deepseek_prefill_driver")
+    cfg, p, x = _deepseek_moe_layer(card, T=4096, seed=1)
+    ids, _ = moe_dropless.route(cfg, p, x)
+    held = int((ids < 8).sum())
+    before = drv.counters(torch.device("cuda"))
+    moe_dropless.moe_apply(cfg, p, x[None])
+    after = drv.counters(torch.device("cuda"))
+    assert held > 0
+    assert after[3] - before[3] == held
+    assert after[2] - before[2] == 1
+    assert moe_dropless.held_count("cuda") == moe_dropless.held_count(x.device) == after[3]
+
+
+def test_moe_grouped_route_on_a_share_makes_no_host_sync(card):
+    from repro_torch.models import moe_dropless
+
+    cfg, p, x = _deepseek_moe_layer(card, T=4096)
+    moe_dropless.moe_apply(cfg, p, x[None])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        moe_dropless.moe_apply(cfg, p, x[None])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _former_experts_grouped(p, x, ids):
+    """``moe_dropless.experts_grouped`` as it was before the layer held a share
+    of the experts and took SwiGLU ones (relu², every expert held)."""
+    from repro_torch.models.moe_dropless import relu2
+
+    T, k = ids.shape
+    E = p["w_up"].shape[0]
+    flat = ids.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    ends = torch.searchsorted(flat[order], torch.arange(E, device=x.device), right=True)
+    ends = ends.to(torch.int32)
+    rows = x[order // k]
+    h = relu2(torch._grouped_mm(rows, p["w_up"], offs=ends))
+    out = torch._grouped_mm(h, p["w_down"], offs=ends)
+    back = torch.empty_like(order)
+    back[order] = torch.arange(order.numel(), device=x.device)
+    return out[back].reshape(T, k, -1)
+
+
+def test_nemotrons_grouped_route_is_unchanged_by_the_share_and_swiglu(card):
+    """nemotron's layer at its published widths on 32,768 tokens: its route
+    and its grouped experts the same bits as the former code's."""
+    from repro_torch.models import moe_dropless
+
+    cfg, p, x = _moe_layer(card)
+    ids, w = moe_dropless.route(cfg, p, x)
+    scores = torch.sigmoid(x.float() @ p["router"]["w"].float())
+    assert torch.equal(ids, torch.topk(scores + p["e_bias"], 6, dim=-1).indices)
+    assert moe_dropless.holds_all(p)
+    assert torch.equal(moe_dropless.experts_grouped(p, x, ids), _former_experts_grouped(p, x, ids))
+
+
+def test_deepseek_prefill_on_the_card_matches_the_reference(card):
+    """A small deepseek_v3 at latent attention's head dims (192 and 128, 2
+    heads) on a share of its experts (8 of 16 held, from 4): bf16 on the card
+    through the flash kernel (one launch a layer) and the grouped route,
+    against the float32 reference on the card's own routes, within 5e-2."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from h100bench.reference import deepseek_v3 as ref
+    from repro_torch.configs.port_only import get_port_config
+    from repro_torch.kernels.flash_attn.kernel import flash_attn_cuda
+    from repro_torch.models import deepseek_v3, moe_dropless
+    from repro_torch.models.model_api import build_model
+
+    cfg = dataclasses.replace(
+        get_port_config("deepseek-v3"), n_layers=3, first_k_dense=1, d_model=256, n_heads=2,
+        n_kv_heads=2, q_lora_rank=64, kv_lora_rank=64, d_ff=512, vocab_size=512, n_experts=16,
+        n_experts_held=8, expert_offset=4, experts_per_token=4, n_group=4, topk_group=2,
+        moe_d_ff=128, moe_shared_d_ff=128)
+    model = build_model(cfg, card)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 700), dtype=np.int64)).to(card)
+    launched = flash_attn_cuda.launches
+    grouped = []
+    real = moe_dropless.experts_grouped
+    moe_dropless.experts_grouped = lambda *a: grouped.append(1) or real(*a)
+    try:
+        routes = []
+        got = deepseek_v3.deepseek_v3_prefill(cfg, params, toks, routes)
+    finally:
+        moe_dropless.experts_grouped = real
+    assert flash_attn_cuda.launches - launched == cfg.n_layers and len(grouped) == 2
+    keys = ("n_layers", "first_k_dense", "d_model", "vocab_size", "n_heads", "q_lora_rank",
+            "kv_lora_rank", "qk_nope_dim", "qk_rope_dim", "v_head_dim", "d_ff", "n_experts",
+            "n_experts_held", "expert_offset", "experts_per_token", "moe_d_ff",
+            "moe_shared_d_ff", "n_group", "topk_group", "routed_scaling_factor", "norm_eps",
+            "rope_theta", "rope_factor", "rope_original_max", "rope_beta_fast",
+            "rope_beta_slow", "rope_mscale", "rope_mscale_all_dim")
     w = dict({k: getattr(cfg, k) for k in keys}, family=cfg.family)
     want = ref.prefill_logits(w, params, toks, routes=routes)
     assert _rel(got, want) < 5e-2

@@ -10,8 +10,9 @@
   span ``flash_attention`` holds either route.
 * The wrapper's refusals, on ``meta`` tensors, before anything is built.
 * The plan: each instantiation's shared memory within the 227 KB a block
-  may use, with the tile constants the CUDA source declares.
-* Coverage: every configuration, and its reduced twin, has a head dim the
+  may use, with the tile constants the CUDA source declares, the (d, d)
+  head dims and latent attention's split pair (q and k of 192, v of 128).
+* Coverage: every configuration, and its reduced twin, has head dims the
   kernel takes.
 
 No JAX here; ``tests/test_torch_prefill.py`` holds the plain version to the
@@ -33,7 +34,7 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.port_only import PORT_ARCHS, get_port_config
 from repro_torch.kernels.flash_attn import kernel, ops
 from repro_torch.kernels.flash_attn.kernel import (
-    HEAD_DIMS, SMEM_LIMIT, flash_attn_cuda, smem_bytes,
+    HEAD_DIMS, SMEM_LIMIT, SPLIT_HEADS, flash_attn_cuda, smem_bytes,
 )
 from repro_torch.models import common
 from repro_torch.models.model_api import ShapeSpec, build_model
@@ -65,11 +66,11 @@ class _Routes:
         monkeypatch.setattr(ops, "flash_attn_cuda", spy_kernel)
 
 
-def _qkv(device="cpu", dtype=torch.float32, B=2, Lq=5, Lk=5, H=4, Hkv=2, Dh=32, seed=0):
+def _qkv(device="cpu", dtype=torch.float32, B=2, Lq=5, Lk=5, H=4, Hkv=2, Dh=32, seed=0, Dv=None):
     gen = torch.Generator().manual_seed(seed)
     q = torch.randn((B, Lq, H, Dh), generator=gen).to(dtype)
     k = torch.randn((B, Lk, Hkv, Dh), generator=gen).to(dtype)
-    v = torch.randn((B, Lk, Hkv, Dh), generator=gen).to(dtype)
+    v = torch.randn((B, Lk, Hkv, Dh if Dv is None else Dv), generator=gen).to(dtype)
     return tuple(t.to(device) for t in (q, k, v))
 
 
@@ -217,7 +218,10 @@ def _strided(shape, strides, dtype=torch.bfloat16):
     ("stride", "multiples of 16 bytes"),
     ("rank", r"q \[B, Lq, H, Dh\]"),
     ("kv_shape", "do not match"),
+    ("split_192_64", r"\(q and k, v\) of \(\(192, 128\),\)"),
+    ("split_128_192", r"\(q and k, v\) of \(\(192, 128\),\)"),
     ("meta", "CUDA device"),
+    ("split_meta", "CUDA device"),
 ])
 def test_wrapper_refuses_what_the_kernel_does_not_take(case, match):
     """On ``meta`` tensors, before anything is built or counted; a call the
@@ -241,6 +245,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case, match):
         q = q[0]
     elif case == "kv_shape":
         v = v[:, :4]
+    elif case == "split_192_64":
+        q, k, v = _qkv("meta", torch.bfloat16, Dh=192, Dv=64)
+    elif case == "split_128_192":
+        q, k, v = _qkv("meta", torch.bfloat16, Dh=128, Dv=192)
+    elif case == "split_meta":
+        q, k, v = _qkv("meta", torch.bfloat16, Dh=192, Dv=128)
     before = flash_attn_cuda.launches
     with pytest.raises(ValueError, match=match):
         flash_attn_cuda(q, k, v)
@@ -256,35 +266,45 @@ def test_wrapper_refuses_cpu_tensors():
 def _source_constants():
     text = SOURCE.read_text()
     consts = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", text)}
-    cases = tuple(int(d) for d in re.findall(r"case (\d+): return launch<", text))
-    return consts, cases
+    cases = tuple(int(d) for d in re.findall(r"case (\d+): return launch<\1, \1>", text))
+    split = tuple((int(a), int(b)) for a, b, c, d in re.findall(
+        r"if \(Dh == (\d+) && Dv == (\d+)\) return launch<(\d+), (\d+)>", text) if (a, b) == (c, d))
+    return consts, cases, split
 
 
 def test_plan_constants_are_the_sources():
     """The Python plan reads the tiles the CUDA source declares, and the
-    source instantiates exactly the head dims the wrapper takes."""
-    consts, cases = _source_constants()
+    source instantiates exactly the head dims the wrapper takes, (d, d) and
+    split."""
+    consts, cases, split = _source_constants()
     assert (consts["BM"], consts["BN"], consts["CW"], consts["STAGES"]) == (
         kernel.BLOCK_M, kernel.BLOCK_N, kernel.CHUNK, kernel.STAGES)
     assert consts["TMAP_ERROR"] == kernel.TMAP_ERROR
     assert cases == HEAD_DIMS
+    assert split == SPLIT_HEADS
 
 
-@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+@pytest.mark.parametrize("head_dim", HEAD_DIMS + SPLIT_HEADS)
 def test_shared_memory_fits_at_every_head_dim(head_dim):
     """Q + STAGES x (K + V), aligned, at most 232,448 bytes a block; at
     zamba2-7b's 224 (four 64-column chunks): 64 KB of Q and two stages of
-    32 KB of K and 32 KB of V."""
-    need = smem_bytes(head_dim)
+    32 KB of K and 32 KB of V; at latent attention's (192, 128): 48 KB of Q
+    and two stages of 24 KB of K and 16 KB of V."""
+    need = smem_bytes(*head_dim) if isinstance(head_dim, tuple) else smem_bytes(head_dim)
     assert 0 < need <= SMEM_LIMIT == 232448
     if head_dim == 224:
         assert need == 1024 + 4 * 128 * 128 + 2 * 2 * 4 * 64 * 128 + 40 == 197672
+    if head_dim == (192, 128):
+        assert need == 1024 + 3 * 128 * 128 + 2 * (3 + 2) * 64 * 128 + 40 == 132136
 
 
 @pytest.mark.parametrize("reduced", [False, True])
 @pytest.mark.parametrize("arch", ARCHS + PORT_ARCHS)
 def test_every_configuration_has_a_head_dim_the_kernel_takes(arch, reduced):
+    """q's and k's head dim, with v as wide, or (q and k, v) a split pair
+    (latent attention's ``v_head_dim``)."""
     cfg = _config(arch)
     cfg = cfg.reduced() if reduced else cfg
-    assert cfg.resolved_head_dim in HEAD_DIMS
+    dims = (cfg.resolved_head_dim, getattr(cfg, "v_head_dim", cfg.resolved_head_dim))
+    assert dims[0] == dims[1] and dims[0] in HEAD_DIMS or dims in SPLIT_HEADS
     assert cfg.n_heads % cfg.n_kv_heads == 0
